@@ -1,0 +1,164 @@
+"""Minimal Random Coding with shared randomness (port of ``repro.core.mrc``).
+
+Encoder and decoder hold a common prior P (Bernoulli parameters) and a shared
+threefry key.  Both derive the same ``n_is`` candidates X_1..X_{n_is} ~ P;
+the encoder, which also holds the posterior Q, samples an index I with
+probability proportional to Q(X_i)/P(X_i) (Gumbel-max) and transmits only I,
+log2(n_is) bits per block.
+
+Fixed-size blocks only (the adaptive segment codec comes with a later
+slice).  Candidates of block ``j``, row ``i`` are the uniforms
+``uniform(fold_in(key, j), (n_is, S))[i]`` exactly as in the reference, so
+both packages draw the same candidates; the decoder regenerates only the
+selected row.
+
+Batching replaces ``vmap``: ``q`` and ``p`` are ``(N..., B, S)`` with any
+leading batch axes (the cohort), and a key is either one key ``(2,)``
+shared by the whole batch (the GR variant's common candidates) or one key
+per batch element ``(N..., 2)``.  The importance weights of the whole batch
+go through ONE ``logw_fn`` call of shape ``(prod(N)*B, n_is, S)``; the
+indices do not depend on how the blocks are batched.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch import prng
+from repro_torch.kernels import ops
+from repro_torch.kernels.mrc_weights import mrc_logw_ref
+
+from .bernoulli import clip01, log_ratio_coeffs
+
+# ---------------------------------------------------------------------------
+# Key derivation (the paper's shared randomness).
+# ---------------------------------------------------------------------------
+
+
+def round_key(base: torch.Tensor, t) -> torch.Tensor:
+    """Shared key for global round t."""
+    return prng.fold_in(base, t)
+
+
+def client_key(base: torch.Tensor, client_id) -> torch.Tensor:
+    """Private shared randomness between the federator and one client."""
+    return prng.fold_in(prng.fold_in(base, 0x5EED), client_id)
+
+
+def sample_key(base: torch.Tensor, ell) -> torch.Tensor:
+    """Per conveyed-sample (ell in [n_UL] or [n_DL]) candidate key."""
+    return prng.fold_in(base, ell)
+
+
+def _block_keys(key: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """``fold_in(key, j)`` for every block j: ``(K..., 2)`` -> ``(K..., B, 2)``."""
+    ids = torch.arange(n_blocks, dtype=torch.int64, device=key.device)
+    return prng.fold_in(key[..., None, :], ids)
+
+
+def _block_candidates(shared_key: torch.Tensor, n_blocks: int, n_is: int,
+                      size: int) -> torch.Tensor:
+    """All candidate uniforms of every block: ``(K..., B, n_is, size)``."""
+    return prng.uniform(_block_keys(shared_key, n_blocks), (n_is, size))
+
+
+def _selected_candidate(shared_key: torch.Tensor, rows: torch.Tensor,
+                        size: int) -> torch.Tensor:
+    """The selected uniform row of every block: rows ``(N..., B)`` -> ``(N..., B, size)``."""
+    keys = _block_keys(shared_key, rows.shape[-1])
+    cols = torch.arange(size, dtype=torch.int64, device=rows.device)
+    return prng.uniform_at(keys, rows.to(torch.int64)[..., None] * size + cols)
+
+
+# ---------------------------------------------------------------------------
+# Fixed-size block codec.
+# ---------------------------------------------------------------------------
+
+LogWFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+# signature: (X: (nb, n_is, S) {0,1}, a: (nb, S), b: (nb, S)) -> (nb, n_is)
+
+# Plain importance log-weights, logW = X @ a + sum(b) (the reference's
+# jnp default); ``encode_fixed`` routes through ``kernels.ops.mrc_logw``.
+default_logw = mrc_logw_ref
+
+
+class MRCResult(NamedTuple):
+    indices: torch.Tensor  # (N..., B) int64 -- what goes over the wire
+    sample: torch.Tensor   # (N..., B, S) {0,1} -- decoder-side reconstruction
+
+
+def sample_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean over axis 0, rounded as the reference rounds ``jnp.mean``.
+
+    XLA turns the division by the count into a multiply by its float32
+    reciprocal, so a mean of {0,1} samples is ``sum * f32(1/n)`` there (for
+    n = 10, 9/10 becomes 0.90000004, not 0.9).  Doing the same keeps the
+    port's model bit-identical to the reference's.
+    """
+    return x.sum(dim=0) * torch.tensor(1.0 / x.shape[0], dtype=x.dtype,
+                                       device=x.device)
+
+
+def _gumbel(select_key: torch.Tensor, n_blocks: int, n_is: int) -> torch.Tensor:
+    gu = prng.uniform(_block_keys(select_key, n_blocks), (n_is,))
+    return -torch.log(-torch.log(torch.clamp(gu, 1e-12, 1.0 - 1e-12)))
+
+
+def encode_fixed(shared_key: torch.Tensor, select_key: torch.Tensor,
+                 q: torch.Tensor, p: torch.Tensor, *, n_is: int,
+                 logw_fn: Optional[LogWFn] = None) -> MRCResult:
+    """MRC-encode posterior q against prior p, both ``(N..., B, S)``.
+
+    Returns the transmitted indices and the sample the decoder will see
+    (identical to what ``decode_fixed`` reconstructs from the indices).
+    ``logw_fn`` defaults to ``kernels.ops.mrc_logw``: the CUDA kernel for
+    tensors on the card, the plain version on the CPU.
+    """
+    logw_impl = logw_fn if logw_fn is not None else ops.mrc_logw
+    B, S = q.shape[-2:]
+    a, b = log_ratio_coeffs(q, p)                                  # (N..., B, S)
+    u = _block_candidates(shared_key, B, n_is, S)                  # (K..., B, n_is, S)
+    x = (u < clip01(p)[..., None, :]).to(torch.float32)           # (N..., B, n_is, S)
+    logw = logw_impl(x.reshape(-1, n_is, S), a.reshape(-1, S).contiguous(),
+                     b.reshape(-1, S).contiguous()).reshape(x.shape[:-1])
+    idx = torch.argmax(logw + _gumbel(select_key, B, n_is), dim=-1)  # (N..., B)
+    chosen = torch.take_along_dim(x, idx[..., None, None], dim=-2)[..., 0, :]
+    return MRCResult(indices=idx, sample=chosen)
+
+
+def decode_fixed(shared_key: torch.Tensor, indices: torch.Tensor,
+                 p: torch.Tensor, *, n_is: int) -> torch.Tensor:
+    """Reconstruct the encoder-selected sample from the indices: ``(N..., B, S)``.
+
+    Regenerates only the selected candidate row of each block (O(d), not
+    O(d * n_is)); ``n_is`` is kept for the reference's signature.
+    """
+    u = _selected_candidate(shared_key, indices, p.shape[-1])
+    return (u < clip01(p)).to(torch.float32)
+
+
+def transmit_fixed(shared_key: torch.Tensor, select_key: torch.Tensor,
+                   q: torch.Tensor, p: torch.Tensor, *, n_is: int,
+                   n_samples: int = 1, logw_fn: Optional[LogWFn] = None):
+    """Convey ``n_samples`` i.i.d. MRC samples of q (fresh candidates per ell).
+
+    Returns ``(indices (N..., n_samples, B), mean_sample (N..., B, S))``;
+    the mean sample is the decoder-side estimate of q.
+    """
+    idxs, samples = [], []
+    for ell in range(n_samples):
+        res = encode_fixed(sample_key(shared_key, ell), sample_key(select_key, ell),
+                           q, p, n_is=n_is, logw_fn=logw_fn)
+        idxs.append(res.indices)
+        samples.append(res.sample)
+    return torch.stack(idxs, dim=-2), sample_mean(torch.stack(samples))
+
+
+def receive_fixed(shared_key: torch.Tensor, indices: torch.Tensor,
+                  p: torch.Tensor, *, n_is: int) -> torch.Tensor:
+    """Decode relayed index vectors ``(N..., n_samples, B)`` -> ``(N..., B, S)``."""
+    samples = [decode_fixed(sample_key(shared_key, ell), indices[..., ell, :], p,
+                            n_is=n_is)
+               for ell in range(indices.shape[-2])]
+    return sample_mean(torch.stack(samples))

@@ -1,0 +1,1 @@
+"""Federated-learning stack of the port: nets, data, tasks, channels, engine."""
