@@ -6,22 +6,26 @@
 Phases (each one fails the run with a non-zero exit; nothing is swallowed):
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the hand-written CUDA kernel(s) from this checkout's sources, in
-   parallel (one ``nvcc`` per source), and print the build time and
-   ``ptxas`` report;
-3. hold each kernel, through the routing wrapper the main path calls
+2. build the hand-written CUDA kernels from this checkout's sources, in
+   parallel (one ``nvcc`` per source), and print the build times and
+   ``ptxas`` reports;
+3. hold each kernel, through the routing wrapper the main paths call
    (``kernels.ops``), against its plain PyTorch version on the card, at the
-   main path's shapes and at ragged shapes, and time the kernel, the plain
-   version and one PyTorch library call beside the kernel's bound;
-4. drive the main path -- the quickstart's BiCompFL-GR training at full
-   width (MLP 100->256->10, d = 28160, 10 clients, blocks of 128, 64
-   candidates) -- for a few rounds on the card, with every kernel launch
-   count set to 0 just before and read just after;
-5. check the card's MRC codec against the port's CPU route on the same
-   inputs at full width (the CPU route is tied to the JAX reference by the
+   main paths' shapes (round 0 of the quickstart at full width for the KL
+   and segment kernels), at ragged shapes and at degenerate segmentations,
+   and time the kernel, the plain version and, where one exists, one
+   PyTorch library call beside the kernel's bound;
+4. drive the three main paths -- the quickstart's BiCompFL-GR at full width
+   (MLP 100->256->10, d = 28160, 10 clients, 64 candidates) under
+   ``FixedAllocation(128)``, ``AdaptiveAllocation(n_is=64)`` and
+   ``AdaptiveAvgAllocation(n_is=64)`` -- for a few rounds each on the card,
+   with every kernel launch count set to 0 just before each path and read
+   just after; then time ``mrc_logw`` at the block sizes Adaptive-Avg chose;
+5. check the card's codecs and KL statistics against the port's CPU routes
+   on the same inputs (the CPU routes are tied to the JAX reference by the
    CPU tests);
-6. trace two steady rounds with ``torch.profiler``: device time by kernel,
-   and the device's idle share of an unprofiled steady round.
+6. profile steady rounds of each path with ``torch.profiler``: device time
+   by kernel, and the device's idle share of an unprofiled steady round.
 
 The second-to-last line is a JSON object ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -40,13 +44,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import prng, quickstart  # noqa: E402
 from repro_torch.core import mrc  # noqa: E402
-from repro_torch.core.bernoulli import log_ratio_coeffs  # noqa: E402
-from repro_torch.fl.engine import FLEngine  # noqa: E402
-from repro_torch.kernels import mrc_weights, ops  # noqa: E402
+from repro_torch.core.bernoulli import clip01, log_ratio_coeffs  # noqa: E402
+from repro_torch.core.blocks import AdaptiveAllocation, AdaptiveAvgAllocation  # noqa: E402
+from repro_torch.fl.channels import TAG_TRAIN  # noqa: E402
+from repro_torch.fl.engine import FLEngine, _kl_stats  # noqa: E402
+from repro_torch.kernels import bernoulli_kl, build, mrc_weights, ops  # noqa: E402
+from repro_torch.kernels.segment_logw import segment_logw_ref  # noqa: E402
 
 ROUNDS = 5
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
@@ -54,9 +62,18 @@ FP32_FLOPS_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
 # fp32 S-term sums in another order than the plain version's GEMV: a few
 # ulp of the partial sums (|logW| here is O(10..100)).
 LOGW_RTOL, LOGW_ATOL = 1e-5, 1e-4
+# KL and segment sums: float32 terms (and, card vs CPU, logs of two
+# libraries in two algebraic forms) summed in another order.  The bound is
+# relative to the sum of the terms' magnitudes, which is what fp32 rounding
+# of a sum scales with: ~100 ulp of it, far above rounding noise and far
+# below any wrong term.
+SUM_RTOL, SUM_ATOL = 1e-5, 1e-6
 # The card's and the CPU's transcendental functions round differently, so
 # a Gumbel-max near-tie may flip an index; everything else must agree.
 MIN_INDEX_MATCH = 0.99
+KERNELS = ("mrc_logw", "bernoulli_kl", "bernoulli_kl_total", "bernoulli_kl_profile",
+           "segment_logw")
+PATHS = {"fixed": None, "adaptive": AdaptiveAllocation, "adaptive-avg": AdaptiveAvgAllocation}
 
 
 def log(msg: str) -> None:
@@ -77,6 +94,40 @@ def cuda_time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def bound(nbytes: float, flops: float) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes}
+
+
+def launched_once(fn, *args):
+    """Call an ``ops`` wrapper once and check that it launched its kernel."""
+    before = fn.launches
+    out = fn(*args)
+    if fn.launches != before + 1:
+        raise AssertionError(f"ops.{fn.__name__} did not launch its kernel on the card")
+    torch.cuda.synchronize()
+    return out
+
+
+def timed_row(name, shape, err, kernel, plain, library, nbytes, flops):
+    row = {"shape": list(shape), "max_abs_err": err, "ms": cuda_time_ms(kernel),
+           "plain_ms": cuda_time_ms(plain),
+           "library_ms": cuda_time_ms(library) if library is not None else None,
+           **bound(nbytes, flops)}
+    lib = f"{row['library_ms']:.4f} ms" if library is not None else "none"
+    log(f"{name} {tuple(shape)}: max|err| {err:.3e}  kernel {row['ms']:.4f} ms  "
+        f"plain {row['plain_ms']:.4f} ms  library {lib}  bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}, {nbytes:.0f} B)")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions.
+# ---------------------------------------------------------------------------
+
+
 def logw_inputs(nb: int, nis: int, s: int, seed: int):
     """Candidates x = (u < p) and log-ratio coefficients, made on the card."""
     key = prng.PRNGKey(seed, device="cuda")
@@ -88,131 +139,329 @@ def logw_inputs(nb: int, nis: int, s: int, seed: int):
     return x.contiguous(), a.contiguous(), b.contiguous()
 
 
-def check_mrc_logw(shape, seed):
-    """Kernel (through ``ops.mrc_logw``, the main path's wrapper) vs plain
-    version on one shape; returns the measured row.  Runs before the main
-    path, which sets the launch count to 0 for its own run."""
+def check_mrc_logw(shape, seed, timed=True):
+    """Kernel (through ``ops.mrc_logw``) vs plain version on one shape."""
     x, a, b = logw_inputs(*shape, seed)
-    before = ops.mrc_logw.launches
-    got = ops.mrc_logw(x, a, b)
-    if ops.mrc_logw.launches != before + 1:
-        raise AssertionError("ops.mrc_logw did not launch the kernel on the card")
+    got = launched_once(ops.mrc_logw, x, a, b)
     want = mrc_weights.mrc_logw_ref(x, a, b)
-    torch.cuda.synchronize()
     err = (got - want).abs()
     tol = LOGW_ATOL + LOGW_RTOL * want.abs()
     if not bool(torch.isfinite(got).all()) or bool((err > tol).any()):
         raise AssertionError(f"mrc_logw {shape}: max |err| {err.max().item()} "
                              f"beyond atol {LOGW_ATOL} + rtol {LOGW_RTOL}")
+    if not timed:
+        log(f"mrc_logw {shape}: max|err| {err.max().item():.3e}")
+        return None
     bsum = b.sum(-1)[:, None, None]
     a3 = a[:, :, None]
-    ms = cuda_time_ms(lambda: ops.mrc_logw(x, a, b))
-    plain_ms = cuda_time_ms(lambda: mrc_weights.mrc_logw_ref(x, a, b))
-    library_ms = cuda_time_ms(lambda: torch.baddbmm(bsum, x, a3))
     nb, nis, s = shape
-    nbytes = 4 * (x.numel() + a.numel() + b.numel() + nb * nis)
-    flops = 2 * x.numel() + b.numel()
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
-    row = {"shape": list(shape), "max_abs_err": err.max().item(), "ms": ms,
-           "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-    log(f"mrc_logw {shape}: max|err| {row['max_abs_err']:.3e}  kernel {ms:.4f} ms  "
-        f"plain {plain_ms:.4f} ms  baddbmm {library_ms:.4f} ms  "
-        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, {nbytes} B)")
+    return timed_row("mrc_logw", shape, err.max().item(), lambda: ops.mrc_logw(x, a, b),
+                     lambda: mrc_weights.mrc_logw_ref(x, a, b),
+                     lambda: torch.baddbmm(bsum, x, a3),
+                     4 * (x.numel() + a.numel() + b.numel() + nb * nis),
+                     2 * x.numel() + b.numel())
+
+
+def round0_inputs():
+    """Round 0 of the quickstart on the card: (posteriors, priors), (10, d).
+
+    The same local training the engine runs, with the engine's keys, so the
+    KL profile, plan and segment weights below are the main path's own.
+    """
+    task, _, shards = quickstart.build("cuda")
+    theta_hat = task.init_theta()[None].repeat(shards.y.shape[0], 1)
+    kt = mrc.round_key(prng.PRNGKey(quickstart.CONFIG["seed"], device="cuda"), 0)
+    keys = prng.split(prng.fold_in(kt, TAG_TRAIN), shards.y.shape[0])
+    payload = task.local_train(theta_hat, shards.x, shards.y, keys)
+    torch.cuda.synchronize()
+    return payload, theta_hat, kt
+
+
+def kl_scale(q, p):
+    """Per-element magnitude of the KL's two terms (what rounding scales with)."""
+    q, p = clip01(q), clip01(p)
+    return (q * (torch.log(q) - torch.log(p))).abs() \
+        + ((1 - q) * (torch.log1p(-q) - torch.log1p(-p))).abs()
+
+
+def assert_close_sums(name, got, want, scale):
+    err = (got - want).abs()
+    tol = SUM_RTOL * scale + SUM_ATOL
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()) \
+            or bool((err > tol).any()):
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)}, "
+                             f"max |err| {err.max().item()}, worst err/tol "
+                             f"{(err / tol).max().item()}")
+    return err.max().item()
+
+
+def check_bernoulli_kl(payload, priors):
+    """The three KL entry points vs their plain versions; times the two the
+    adaptive paths call at their shape (10, 28160)."""
+    p = clip01(priors)
+    rows = {}
+    n, d = payload.shape
+    sc = kl_scale(payload, p)
+    err = assert_close_sums("bernoulli_kl_profile (10, 28160)",
+                            launched_once(ops.bernoulli_kl_profile, payload, p),
+                            bernoulli_kl.profile_ref(payload, p), sc.sum(0) / n)
+    rows["profile"] = timed_row(
+        "bernoulli_kl_profile", (n, d), err, lambda: ops.bernoulli_kl_profile(payload, p),
+        lambda: bernoulli_kl.profile_ref(payload, p), None, 4 * (2 * n * d + d), 14 * n * d)
+    err = assert_close_sums("bernoulli_kl_total (10, 28160)",
+                            launched_once(ops.bernoulli_kl_total, payload, p),
+                            bernoulli_kl.total_ref(payload, p), sc.sum() / n)
+    rows["total"] = timed_row(
+        "bernoulli_kl_total", (n, d), err, lambda: ops.bernoulli_kl_total(payload, p),
+        lambda: bernoulli_kl.total_ref(payload, p), None, 4 * (2 * n * d + 1), 14 * n * d)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for shape in [(7, 3001), (3, 5), (1, 1), (4, 2048), (2200, 128), (1, 300000)]:
+        q = torch.rand(shape, generator=gen, device="cuda")
+        pp = torch.rand(shape, generator=gen, device="cuda")
+        q[0, 0], pp[0, -1] = 0.0, 1.0
+        sc = kl_scale(q, pp)
+        errs = [assert_close_sums(f"bernoulli_kl {shape}", launched_once(ops.bernoulli_kl, q, pp),
+                                  bernoulli_kl.rows_ref(q, pp), sc.sum(-1)),
+                assert_close_sums(f"bernoulli_kl_total {shape}",
+                                  launched_once(ops.bernoulli_kl_total, q, pp),
+                                  bernoulli_kl.total_ref(q, pp), sc.sum() / shape[0]),
+                assert_close_sums(f"bernoulli_kl_profile {shape}",
+                                  launched_once(ops.bernoulli_kl_profile, q, pp),
+                                  bernoulli_kl.profile_ref(q, pp), sc.sum(0) / shape[0])]
+        log(f"bernoulli_kl {shape}: rows/total/profile max|err| "
+            + " / ".join(f"{e:.3e}" for e in errs))
+    return rows
+
+
+def segment_inputs(payload, priors, kt, n_is):
+    """The main path's segment_logw call of a round: shared candidates
+    (n_is, d), clipped priors and log-ratio coefficients (10, d)."""
+    u = mrc._segment_candidates(kt, n_is, payload.shape[1])
+    a, b = log_ratio_coeffs(clip01(payload), priors)
+    return u, clip01(priors).contiguous(), a.contiguous(), b.contiguous()
+
+
+def check_segment_case(label, u, p, a, b, seg, n_seg):
+    seg_t = torch.as_tensor(seg, dtype=torch.int32, device="cuda")
+    got = launched_once(ops.segment_logw, u, p, a, b, seg_t, n_seg)
+    want = segment_logw_ref(u, p, a, b, seg_t.long(), n_seg)
+    mag = segment_logw_ref(torch.zeros_like(u), torch.ones_like(p), a.abs(), b.abs(),
+                           seg_t.long(), n_seg)
+    err = assert_close_sums(f"segment_logw {label}", got, want, mag)
+    log(f"segment_logw {label}: u {tuple(u.shape)}, n_seg {n_seg}: max|err| {err:.3e}")
+    return seg_t, got, want, err
+
+
+def check_segment_logw(payload, priors, kt, seg, n_seg):
+    """Main path's shapes (shared u (64, 28160), 10 clients, the round-0
+    plan), degenerate segmentations and ragged shapes."""
+    u, p, a, b = segment_inputs(payload, priors, kt, 64)
+    seg_t, _, _, err = check_segment_case("main path", u, p, a, b, seg, n_seg)
+    c, nis, d = p.shape[0], u.shape[0], u.shape[1]
+    row = timed_row("segment_logw", (c, nis, d, n_seg), err,
+                    lambda: ops.segment_logw(u, p, a, b, seg_t, n_seg),
+                    lambda: segment_logw_ref(u, p, a, b, seg_t.long(), n_seg), None,
+                    4 * (u.numel() + 3 * c * d + d + c * nis * n_seg), 2 * c * nis * d)
+    check_segment_case("one segment", u, p, a, b, np.zeros(d, np.int32), 1)
+    check_segment_case("all singletons", u, p, a, b, np.arange(d, dtype=np.int32), d)
+    rng = np.random.default_rng(3)
+    cuts = np.sort(rng.choice(np.arange(1, d), size=600, replace=False))
+    gaps = np.zeros(d, np.int32)
+    gaps[cuts] = rng.integers(1, 3, cuts.size)                 # some ids skipped
+    check_segment_case("skipped ids", u, p, a, b, np.cumsum(gaps).astype(np.int32),
+                       int(gaps.sum()) + 1)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for cl, nis2, d2 in [(3, 33, 1001), (1, 1, 7), (2, 70, 513)]:
+        uu = torch.rand(nis2, d2, generator=gen, device="cuda")
+        pp = torch.rand(cl, d2, generator=gen, device="cuda")
+        aa, bb = log_ratio_coeffs(torch.rand(cl, d2, generator=gen, device="cuda"), pp)
+        sg = np.sort(rng.integers(0, max(d2 // 5, 1), d2)).astype(np.int32)
+        sg -= sg[0]
+        check_segment_case(f"ragged {cl} clients", uu, pp, aa.contiguous(),
+                           bb.contiguous(), sg, int(sg[-1]) + 1)
     return row
 
 
-def phase_main_path():
-    """The quickstart's BiCompFL-GR at full width on the card."""
-    cfg = quickstart.CONFIG
-    n = cfg["n_clients"]
-    ops.mrc_logw.launches = 0
+# ---------------------------------------------------------------------------
+# Phase 4: the main paths.
+# ---------------------------------------------------------------------------
+
+
+def logged(cls):
+    """``cls`` with a record of every plan it returns."""
+    class Logged(cls):
+        def plan(self, kl, d):
+            out = super().plan(kl, d)
+            self.log.append(out)
+            return out
+    return Logged
+
+
+def run_path(name):
+    """One main path at full width for ``ROUNDS`` rounds, launch counts set
+    to 0 just before and read just after.  Returns (launches, plans, out)."""
+    cfg = dict(quickstart.CONFIG, allocation=name)
+    task, spec, shards = quickstart.build("cuda", cfg)
+    plans = None
+    if PATHS[name] is not None:
+        spec.allocation = logged(PATHS[name])(n_is=cfg["n_is"])
+        spec.allocation.log = plans = []
+    for k in KERNELS:
+        getattr(ops, k).launches = 0
     t0 = time.perf_counter()
-    out = quickstart.run("cuda", rounds=ROUNDS, eval_every=1)
+    out = FLEngine(task, spec).run(shards, rounds=ROUNDS, seed=cfg["seed"], eval_every=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ops.mrc_logw.launches
-
-    d = int(out["theta"].shape[0])
-    n_blocks = -(-d // cfg["block_size"])
-    n_ul = 1  # the quickstart conveys one sample per client and round
-    ul = n * n_ul * n_blocks * math.log2(cfg["n_is"])
-    dl = n * (n - 1) * n_ul * n_blocks * math.log2(cfg["n_is"])
-    cum = [h["cum_bits"] for h in out["history"]]
-    accs = [h["acc"] for h in out["history"]]
-    m = out["meter"]
-    log(f"main path: d {d}, {n_blocks} blocks, {ROUNDS} rounds in {wall:.3f} s; "
-        f"mrc_logw launches {launches}; accuracy {accs}")
+    launches = {k: getattr(ops, k).launches for k in KERNELS}
+    log(f"path {name}: {ROUNDS} rounds in {wall:.3f} s; launches {launches}; "
+        f"accuracy {[round(h['acc'], 4) for h in out['history']]}")
+    if plans is not None:
+        log(f"  plans: " + "; ".join(
+            f"round {t}: size {pl[0]}, {pl[1]} blocks, overhead {pl[3]}"
+            for t, pl in enumerate(plans)))
     ph = out["phase_seconds"]
     for label, sl in (("round 1 (warm-up)", slice(0, 1)),
                       (f"rounds 2-{ROUNDS} mean", slice(1, None))):
-        log(f"{label}: " + ", ".join(
+        log(f"  {label}: " + ", ".join(
             f"{k} {1e3 * sum(v[sl]) / len(v[sl]):.3f} ms" for k, v in ph.items())
             + " (host clock, synchronised at phase ends)")
-    if d != 28160 or n_blocks != 220:
-        raise AssertionError(f"not the full-width model: d {d}, {n_blocks} blocks")
-    if launches != ROUNDS * n_ul:
-        raise AssertionError(f"mrc_logw launched {launches} times, expected "
-                             f"{ROUNDS * n_ul} (rounds x n_ul)")
-    if cum != [(t + 1) * (ul + dl) for t in range(ROUNDS)]:
-        raise AssertionError(f"booked bits {cum}, expected {ul}+{dl} per round")
-    if abs(m["uplink_bpp"] * n * d * ROUNDS - ROUNDS * ul) > 1e-6 * ROUNDS * ul:
-        raise AssertionError(f"uplink bits {m['uplink_bpp'] * n * d * ROUNDS}")
+    return launches, plans, out
+
+
+def check_path(name, launches, plans, out):
+    """Launch counts, booked bits and sanity of one path's run."""
+    c = quickstart.CONFIG
+    n, d = c["n_clients"], int(out["theta"].shape[0])
+    expect = {k: 0 for k in KERNELS}
+    if name == "fixed":
+        expect["mrc_logw"] = ROUNDS
+        plans = [(c["block_size"], -(-d // c["block_size"]), None, 0.0)] * ROUNDS
+    elif name == "adaptive":
+        expect["segment_logw"] = expect["bernoulli_kl_profile"] = ROUNDS
+    else:
+        expect["mrc_logw"] = expect["bernoulli_kl_total"] = ROUNDS
+    if d != 28160:
+        raise AssertionError(f"not the full-width model: d {d}")
+    if launches != expect:
+        raise AssertionError(f"path {name}: launches {launches}, expected {expect}")
+    bits = math.log2(c["n_is"])
+    cum, total = [], 0.0
+    for pl in plans:
+        if name == "adaptive" and (pl[0] is not None or int(pl[2][-1]) + 1 != pl[1]):
+            raise AssertionError(f"adaptive plan is not a segmentation: {pl[:2]}")
+        total += n * pl[1] * bits + n * (n - 1) * pl[1] * bits + pl[3] * n
+        cum.append(total)
+    got = [h["cum_bits"] for h in out["history"]]
+    if len(plans) != ROUNDS or got != cum:
+        raise AssertionError(f"path {name}: booked bits {got}, expected {cum}")
     theta = out["theta"]
-    if not all(math.isfinite(a) for a in accs) or not bool(torch.isfinite(theta).all()) \
+    if not all(math.isfinite(h["acc"]) for h in out["history"]) \
+            or not bool(torch.isfinite(theta).all()) \
             or float(theta.min()) < 0 or float(theta.max()) > 1:
-        raise AssertionError("non-finite accuracy or theta outside [0, 1]")
-    log(f"booked bits per round: uplink {ul:.0f}, downlink {dl:.0f}")
-    steady = sum(sum(v[1:]) for v in ph.values()) / (ROUNDS - 1)
-    return launches, steady
+        raise AssertionError(f"path {name}: non-finite accuracy or theta outside [0, 1]")
+    log(f"  booked bits per round: {[round(b - a, 1) for a, b in zip([0.0] + cum, cum)]}")
+    ph = out["phase_seconds"]
+    return sum(sum(v[1:]) for v in ph.values()) / (ROUNDS - 1)
 
 
-def phase_profile(steady_round_s: float):
-    """Device time by kernel over 2 steady rounds, and the device's idle share
-    of an unprofiled steady round (the profiler slows the host many-fold)."""
-    task, spec, shards = quickstart.build("cuda")
+# ---------------------------------------------------------------------------
+# Phase 5: card vs CPU on the same inputs.
+# ---------------------------------------------------------------------------
+
+
+def phase_codec_vs_cpu(payload, priors, kt):
+    """KL statistics, plans and both MRC codecs: card (kernels) vs the CPU
+    routes (plain versions) on the same inputs."""
+    cq, cp, ckt = payload.cpu(), priors.cpu(), kt.cpu()
+    n, d = payload.shape
+    cpu = _kl_stats(cq, cp, needs_profile=True)                  # profile (d,)
+    card = _kl_stats(payload, priors, needs_profile=True)
+    card_mean = _kl_stats(payload, priors, needs_profile=False)  # mean KL, 0-d
+    sc = kl_scale(cq, clip01(cp))
+    err = assert_close_sums("KL profile card vs cpu", card.cpu(), cpu, sc.sum(0) / n)
+    err_t = assert_close_sums("KL total card vs cpu", card_mean.cpu() * d, cpu.sum(),
+                              sc.sum() / n)
+    log(f"KL statistics card vs cpu: profile max|err| {err:.3e}, mean "
+        f"{float(card_mean):.8f} vs {float(cpu.sum() / d):.8f} (|err| {err_t:.3e})")
+    alloc, avg = AdaptiveAllocation(n_is=64), AdaptiveAvgAllocation(n_is=64)
+    plan_card = alloc.plan(card.cpu().numpy(), d)
+    plan_cpu = alloc.plan(cpu.numpy(), d)
+    avg_card = avg.plan(card_mean.cpu().numpy(), d)
+    avg_cpu = avg.plan(cpu.numpy(), d)
+    if plan_card[1:2] + plan_card[3:] != plan_cpu[1:2] + plan_cpu[3:] \
+            or not np.array_equal(plan_card[2], plan_cpu[2]) or avg_card != avg_cpu:
+        raise AssertionError(f"plans differ card vs cpu: {plan_card[1]} vs {plan_cpu[1]} "
+                             f"segments, avg {avg_card} vs {avg_cpu}")
+    log(f"plans card vs cpu: equal (Adaptive {plan_card[1]} segments, "
+        f"Adaptive-Avg size {avg_card[0]})")
+
+    seg, n_seg = plan_cpu[2], plan_cpu[1]
+    sels = prng.split(prng.PRNGKey(12, device="cpu"), n)
+    q = clip01(cq)
+    cres = mrc.encode_segments(ckt, sels, q, clip01(cp), seg, n_is=64, n_seg=n_seg)
+    gres = mrc.encode_segments(kt, sels.cuda(), q.cuda(), clip01(priors), seg, n_is=64,
+                               n_seg=n_seg)
+    same = gres.indices.cpu() == cres.indices
+    rate = float(same.to(torch.float32).mean())
+    log(f"segment codec card vs cpu: index match {rate:.5f} over {same.numel()} segments")
+    if rate < MIN_INDEX_MATCH:
+        raise AssertionError(f"card/cpu segment index match {rate} < {MIN_INDEX_MATCH}")
+    keep = same[torch.arange(n)[:, None], torch.as_tensor(seg, dtype=torch.int64)[None]]
+    if not torch.equal(gres.sample.cpu()[keep], cres.sample[keep]):
+        raise AssertionError("same segment index, different decoded sample")
+    dec = mrc.decode_segments(kt, gres.indices, clip01(priors), seg, n_is=64)
+    if not torch.equal(dec, gres.sample):
+        raise AssertionError("decode_segments(encode_segments) is not the sample")
+
+    nb, s = 220, quickstart.CONFIG["block_size"]
+    g = torch.Generator().manual_seed(7)
+    fq = 0.05 + 0.9 * torch.rand(n, nb, s, generator=g)
+    fp = torch.clamp(fq + 0.05 * torch.randn(n, nb, s, generator=g), 0.05, 0.95)
+    key = prng.PRNGKey(11, device="cpu")
+    cpu_f = mrc.encode_fixed(key, sels, fq, fp, n_is=64)
+    gpu_f = mrc.encode_fixed(key.cuda(), sels.cuda(), fq.cuda(), fp.cuda(), n_is=64)
+    same = gpu_f.indices.cpu() == cpu_f.indices
+    rate = float(same.to(torch.float32).mean())
+    log(f"fixed codec card vs cpu: index match {rate:.5f} over {same.numel()} blocks")
+    if rate < MIN_INDEX_MATCH:
+        raise AssertionError(f"card/cpu index match {rate} < {MIN_INDEX_MATCH}")
+    if not torch.equal(gpu_f.sample.cpu()[same], cpu_f.sample[same]):
+        raise AssertionError("same index, different decoded sample")
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: profile.
+# ---------------------------------------------------------------------------
+
+
+def phase_profile(name, steady_round_s: float, rounds: int):
+    """Device time by kernel over ``rounds`` rounds of one path, and the
+    device's idle share of an unprofiled steady round (the profiler slows
+    the host many-fold)."""
+    task, spec, shards = quickstart.build("cuda", dict(quickstart.CONFIG, allocation=name))
     engine = FLEngine(task, spec)
     engine.run(shards, rounds=1)  # warm-up outside the window
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, acc_events=True) as prof:
-        engine.run(shards, rounds=2)
+        engine.run(shards, rounds=rounds)
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 2
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / rounds
     if busy_ms == 0:
-        log("profile: the profiler saw no device time (device busy: not measured)")
+        log(f"profile {name}: the profiler saw no device time (device busy: not measured)")
         return
-    log(f"profile: device busy {busy_ms:.3f} ms per round in "
-        f"{sum(e.count for e in kernels) // 2} kernels; steady round {1e3 * steady_round_s:.3f}"
-        f" ms unprofiled -> device idle share {1 - busy_ms / (1e3 * steady_round_s):.4f}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"  {e.self_device_time_total / 2e3:8.3f} ms/round  x{e.count // 2:<5d} "
-            f"{e.key[:100]}")
-
-
-def phase_codec_vs_cpu():
-    """Full-width MRC encode on the card (kernel) vs the CPU route (plain)."""
-    cfg = quickstart.CONFIG
-    n, nb, s, nis = cfg["n_clients"], 220, cfg["block_size"], cfg["n_is"]
-    g = torch.Generator().manual_seed(7)
-    q = 0.05 + 0.9 * torch.rand(n, nb, s, generator=g)
-    p = torch.clamp(q + 0.05 * torch.randn(n, nb, s, generator=g), 0.05, 0.95)
-    key = prng.PRNGKey(11, device="cpu")
-    sels = prng.split(prng.PRNGKey(12, device="cpu"), n)
-    cpu = mrc.encode_fixed(key, sels, q, p, n_is=nis)
-    gpu = mrc.encode_fixed(key.cuda(), sels.cuda(), q.cuda(), p.cuda(), n_is=nis)
-    gi = gpu.indices.cpu()
-    same = gi == cpu.indices
-    rate = float(same.to(torch.float32).mean())
-    log(f"codec card vs cpu: index match {rate:.5f} over {same.numel()} blocks")
-    if rate < MIN_INDEX_MATCH:
-        raise AssertionError(f"card/cpu index match {rate} < {MIN_INDEX_MATCH}")
-    if not torch.equal(gpu.sample.cpu()[same], cpu.sample[same]):
-        raise AssertionError("same index, different decoded sample")
+    log(f"profile {name}: device busy {busy_ms:.3f} ms per round in "
+        f"{sum(e.count for e in kernels) // rounds} kernels; steady round "
+        f"{1e3 * steady_round_s:.3f} ms unprofiled -> device idle share "
+        f"{1 - busy_ms / (1e3 * steady_round_s):.4f}")
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    own = ("mrc_logw_kernel", "kl_rows_pass", "kl_cols", "seg_pass")
+    for i, e in enumerate(ranked):
+        if i < 10 or any(k in e.key for k in own):
+            log(f"  {e.self_device_time_total / rounds / 1e3:8.3f} ms/round  "
+                f"x{e.count // rounds:<5d} {e.key[:100]}")
 
 
 def main() -> int:
@@ -226,10 +475,9 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
-    sources = {"mrc_logw": mrc_weights.build}
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        futures = {k: pool.submit(fn) for k, fn in sources.items()}
+    with concurrent.futures.ThreadPoolExecutor(len(build.SOURCES)) as pool:
+        futures = {k: pool.submit(build.build, k) for k in build.SOURCES}
     builds = {k: f.result() for k, f in futures.items()}
     log(f"kernel build: {time.perf_counter() - t0:.2f} s wall")
     for name, res in builds.items():
@@ -237,20 +485,50 @@ def main() -> int:
         for line in res["log"].strip().splitlines():
             log(f"    {line}")
 
+    # Phase 3.
     main_row = check_mrc_logw((2200, 64, 128), seed=1)
-    check_mrc_logw((7, 48, 100), seed=2)
-    check_mrc_logw((5, 33, 7), seed=3)
+    check_mrc_logw((7, 48, 100), seed=2, timed=False)
+    check_mrc_logw((5, 33, 7), seed=3, timed=False)
+    check_mrc_logw((550, 64, 512), seed=4, timed=False)
+    payload, priors, kt = round0_inputs()
+    kl_rows = check_bernoulli_kl(payload, priors)
+    profile = bernoulli_kl.profile_ref(payload, clip01(priors)).cpu().numpy()
+    _, n_seg, seg, _ = AdaptiveAllocation(n_is=64).plan(profile, payload.shape[1])
+    seg_row = check_segment_logw(payload, priors, kt, seg, n_seg)
 
-    launches, steady_round_s = phase_main_path()
-    phase_codec_vs_cpu()
-    phase_profile(steady_round_s)
+    # Phase 4.
+    runs, steady = {}, {}
+    for name in PATHS:
+        runs[name] = run_path(name)
+        steady[name] = check_path(name, *runs[name])
+    avg_sizes = sorted({pl[0] for pl in runs["adaptive-avg"][1]})
+    n = quickstart.CONFIG["n_clients"]
+    avg_rows = [check_mrc_logw((n * (-(-28160 // s)), 64, s), seed=10 + s) for s in avg_sizes]
 
-    kernels = [{"name": "mrc_logw", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/mrc_logw.cu",
-                "replaces": "src/repro/kernels/mrc_weights.py:71",
-                "launches": launches,
-                **{k: main_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                            "bound_by", "library_ms")}}]
+    # Phase 5.
+    phase_codec_vs_cpu(payload, priors, kt)
+
+    # Phase 6.
+    phase_profile("fixed", steady["fixed"], 2)
+    phase_profile("adaptive", steady["adaptive"], 1)
+    phase_profile("adaptive-avg", steady["adaptive-avg"], 1)
+
+    def by_path(*names):
+        return {p: sum(runs[p][0][k] for k in names) for p in PATHS}
+
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    rows = [("mrc_logw", "src/repro/kernels/mrc_weights.py:71", main_row,
+             by_path("mrc_logw"), {"adaptive_avg_shapes": avg_rows}),
+            ("bernoulli_kl", "src/repro/kernels/bernoulli_kl.py:46", kl_rows["profile"],
+             by_path("bernoulli_kl", "bernoulli_kl_total", "bernoulli_kl_profile"),
+             {"profile": kl_rows["profile"], "total": kl_rows["total"]}),
+            ("segment_logw", "src/repro/kernels/segment_logw.py:92", seg_row,
+             by_path("segment_logw"), {"shape": seg_row["shape"]})]
+    kernels = [{"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu", "replaces": replaces,
+                "launches": sum(per_path.values()), "launches_by_path": per_path,
+                **{k: row[k] for k in keys}, **extra}
+               for name, replaces, row, per_path, extra in rows]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -6,28 +6,32 @@ the encoder, which also holds the posterior Q, samples an index I with
 probability proportional to Q(X_i)/P(X_i) (Gumbel-max) and transmits only I,
 log2(n_is) bits per block.
 
-Fixed-size blocks only (the adaptive segment codec comes with a later
-slice).  Candidates of block ``j``, row ``i`` are the uniforms
-``uniform(fold_in(key, j), (n_is, S))[i]`` exactly as in the reference, so
-both packages draw the same candidates; the decoder regenerates only the
-selected row.
+Two codecs, as in the reference: fixed-size blocks, and variable-size
+segments for the adaptive allocation.  Candidates of block ``j``, row ``i``
+are the uniforms ``uniform(fold_in(key, j), (n_is, S))[i]``, and candidate
+row ``i`` of the segment codec is ``uniform(fold_in(key, i), (d,))``,
+exactly as in the reference, so both packages draw the same candidates;
+the decoders regenerate only the selected rows.
 
 Batching replaces ``vmap``: ``q`` and ``p`` are ``(N..., B, S)`` with any
 leading batch axes (the cohort), and a key is either one key ``(2,)``
 shared by the whole batch (the GR variant's common candidates) or one key
 per batch element ``(N..., 2)``.  The importance weights of the whole batch
-go through ONE ``logw_fn`` call of shape ``(prod(N)*B, n_is, S)``; the
-indices do not depend on how the blocks are batched.
+go through ONE ``logw_fn`` call of shape ``(prod(N)*B, n_is, S)`` (one
+``seg_logw_fn`` call for the segment codec); the indices do not depend on
+how the blocks are batched.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import prng
 from repro_torch.kernels import ops
 from repro_torch.kernels.mrc_weights import mrc_logw_ref
+from repro_torch.kernels.segment_logw import segment_logw_ref
 
 from .bernoulli import clip01, log_ratio_coeffs
 
@@ -160,5 +164,142 @@ def receive_fixed(shared_key: torch.Tensor, indices: torch.Tensor,
     """Decode relayed index vectors ``(N..., n_samples, B)`` -> ``(N..., B, S)``."""
     samples = [decode_fixed(sample_key(shared_key, ell), indices[..., ell, :], p,
                             n_is=n_is)
+               for ell in range(indices.shape[-2])]
+    return sample_mean(torch.stack(samples))
+
+
+# ---------------------------------------------------------------------------
+# Variable-size (segment) codec for the adaptive block allocation.
+# ---------------------------------------------------------------------------
+
+
+def _segment_candidates(shared_key: torch.Tensor, n_is: int, d: int) -> torch.Tensor:
+    """Candidate uniforms ``(K..., n_is, d)``: row r is ``uniform(fold_in(key, r), (d,))``."""
+    rows = torch.arange(n_is, dtype=torch.int64, device=shared_key.device)
+    return prng.uniform(prng.fold_in(shared_key[..., None, :], rows), (d,))
+
+
+SegLogWFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                      torch.Tensor, int], torch.Tensor]
+# signature: (u: (n_is, d) uniforms shared by the clients, p: (C, d) clipped prior,
+#             a: (C, d), b: (C, d), seg_ids: (d,), n_seg) -> (C, n_is, n_seg)
+
+# Plain segment log-weights, the reference's jnp default (``where`` and a
+# segment sum); ``encode_segments`` routes through ``kernels.ops.segment_logw``.
+default_segment_logw = segment_logw_ref
+
+
+def _validate_seg_ids(seg_ids) -> np.ndarray:
+    """Host-side check of the segment-codec contract; returns the ids.
+
+    The wire block-plan header encodes a segmentation as run-lengths, so a
+    permuted ``seg_ids`` would round-trip the header to a *different*
+    segmentation and decode a wrong sample with no error.  Enforce
+    non-decreasing ids starting at 0 (the kernel also reads each segment as
+    one contiguous run).
+    """
+    seg = seg_ids.cpu().numpy() if isinstance(seg_ids, torch.Tensor) \
+        else np.asarray(seg_ids)
+    if seg.ndim != 1 or seg.size == 0:
+        raise ValueError(
+            f"seg_ids must be a non-empty 1-D vector, got shape {seg.shape}")
+    if int(seg[0]) != 0 or np.any(np.diff(seg) < 0):
+        raise ValueError(
+            "seg_ids must be non-decreasing and start at 0: the wire plan "
+            "header stores segments as run-lengths, so any other ordering "
+            "round-trips to a different segmentation")
+    return seg
+
+
+def _seg_tensor(seg_ids, device) -> torch.Tensor:
+    """Validated ids as an int32 tensor on ``device`` (what the kernel takes)."""
+    return torch.as_tensor(_validate_seg_ids(seg_ids).astype(np.int32), device=device)
+
+
+def _encode_segments(shared_key, select_key, q, p, seg, *, n_is, n_seg,
+                     seg_logw_fn) -> MRCResult:
+    if shared_key.dim() != 1:
+        raise ValueError(f"shared_key must be one key (2,), got {tuple(shared_key.shape)}")
+    logw_impl = seg_logw_fn if seg_logw_fn is not None else ops.segment_logw
+    lead, d = q.shape[:-1], q.shape[-1]
+    pc = clip01(p)
+    u = _segment_candidates(shared_key, n_is, d)                   # (n_is, d)
+    a, b = log_ratio_coeffs(q, p)                                  # (N..., d)
+    logw = logw_impl(u.contiguous(), pc.reshape(-1, d).contiguous(),
+                     a.reshape(-1, d).contiguous(), b.reshape(-1, d).contiguous(),
+                     seg, n_seg).reshape(lead + (n_is, n_seg))
+    gu = prng.uniform(select_key, (n_is, n_seg))                   # (N..., n_is, n_seg)
+    gumbel = -torch.log(-torch.log(torch.clamp(gu, 1e-12, 1.0 - 1e-12)))
+    idx = torch.argmax(logw + gumbel, dim=-2)                      # (N..., n_seg)
+    rows = idx[..., seg.to(torch.int64)]                           # (N..., d)
+    u_sel = u[rows, torch.arange(d, device=u.device)]             # (N..., d)
+    return MRCResult(indices=idx, sample=(u_sel < pc).to(torch.float32))
+
+
+def encode_segments(shared_key: torch.Tensor, select_key: torch.Tensor,
+                    q: torch.Tensor, p: torch.Tensor, seg_ids, *, n_is: int,
+                    n_seg: int, seg_logw_fn: Optional[SegLogWFn] = None) -> MRCResult:
+    """MRC over variable blocks given per-parameter segment ids ``(d,)``.
+
+    ``q`` and ``p`` are ``(N..., d)``; ``shared_key`` is one key ``(2,)``
+    (common candidates: one ``(n_is, d)`` draw serves the whole batch; the
+    PR variants' private keys come with those variants); ``select_key`` is
+    ``(N..., 2)``.  Returns indices ``(N..., n_seg)`` and the decoder-side
+    sample ``(N..., d)``.
+
+    logW(i, s) = sum_{e in s} x_ie a_e + sum_{e in s} b_e, with the
+    candidate term a fused compare+select ``where(u < p, a, 0)``; the
+    selected sample is re-thresholded from the chosen candidate row only.
+    ``seg_logw_fn`` defaults to ``kernels.ops.segment_logw``: the CUDA
+    kernel for tensors on the card, the plain version on the CPU.
+    """
+    seg = _seg_tensor(seg_ids, q.device)
+    return _encode_segments(shared_key, select_key, q, p, seg, n_is=n_is,
+                            n_seg=n_seg, seg_logw_fn=seg_logw_fn)
+
+
+def _decode_segments(shared_key, indices, p, seg) -> torch.Tensor:
+    d = p.shape[-1]
+    rows = indices.to(torch.int64)[..., seg.to(torch.int64)]      # (N..., d)
+    keys = prng.fold_in(shared_key[..., None, :], rows)            # (N..., d, 2)
+    cols = torch.arange(d, dtype=torch.int64, device=p.device)
+    u_sel = prng.uniform_at(keys, cols, ndim=0)
+    return (u_sel < clip01(p)).to(torch.float32)
+
+
+def decode_segments(shared_key: torch.Tensor, indices: torch.Tensor,
+                    p: torch.Tensor, seg_ids, *, n_is: int) -> torch.Tensor:
+    """Reconstruct the encoder-selected sample from segment indices: ``(N..., d)``.
+
+    Regenerates only the selected candidate row of each parameter (O(d),
+    not O(d * n_is)); ``n_is`` is kept for the reference's signature.
+    """
+    return _decode_segments(shared_key, indices, p, _seg_tensor(seg_ids, p.device))
+
+
+def transmit_segments(shared_key: torch.Tensor, select_key: torch.Tensor,
+                      q: torch.Tensor, p: torch.Tensor, seg_ids, *, n_is: int,
+                      n_seg: int, n_samples: int = 1,
+                      seg_logw_fn: Optional[SegLogWFn] = None):
+    """Convey ``n_samples`` i.i.d. segment-MRC samples of q.
+
+    Returns ``(indices (N..., n_samples, n_seg), mean_sample (N..., d))``.
+    """
+    seg = _seg_tensor(seg_ids, q.device)
+    idxs, samples = [], []
+    for ell in range(n_samples):
+        res = _encode_segments(sample_key(shared_key, ell), sample_key(select_key, ell),
+                               q, p, seg, n_is=n_is, n_seg=n_seg,
+                               seg_logw_fn=seg_logw_fn)
+        idxs.append(res.indices)
+        samples.append(res.sample)
+    return torch.stack(idxs, dim=-2), sample_mean(torch.stack(samples))
+
+
+def receive_segments(shared_key: torch.Tensor, indices: torch.Tensor,
+                     p: torch.Tensor, seg_ids, *, n_is: int) -> torch.Tensor:
+    """Decode relayed segment-index vectors ``(N..., n_samples, n_seg)`` -> ``(N..., d)``."""
+    seg = _seg_tensor(seg_ids, p.device)
+    samples = [_decode_segments(sample_key(shared_key, ell), indices[..., ell, :], p, seg)
                for ell in range(indices.shape[-2])]
     return sample_mean(torch.stack(samples))

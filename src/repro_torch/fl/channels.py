@@ -13,9 +13,11 @@ and downlinks::
 with ``transmit`` / ``distribute`` as the stateless object shell.  Bits are
 computed from shapes and the round's :class:`BlockPlan`, as Python floats.
 
-This slice ports the BiCompFL-GR pair: ``MRCFixedChannel`` (MRC uplink over
-shared candidates) and ``IndexRelayDownlink``.  The wire codecs
-(``encode_up`` and friends) and the fused path's ``pin`` come later.
+This port holds BiCompFL-GR's channels: ``MRCFixedChannel`` (MRC uplink
+over fixed blocks), ``MRCAdaptiveChannel`` (MRC uplink over the variable
+segments of an adaptive plan), both on shared candidates, and
+``IndexRelayDownlink``.  The wire codecs (``encode_up``, ``decode_up`` and
+friends) and the fused path's ``pin`` come later.
 
 The key-derivation tags are the reference's, so both packages draw the same
 candidates and selections in every round.
@@ -170,6 +172,40 @@ class MRCFixedChannel(StatelessUplink):
             logw_fn=self.logw_fn)
         bits = ctx.n_active * self.n_samples * plan.billable * math.log2(self.n_is)
         return idxs, from_blocks(q_hat_b, ctx.d), bits
+
+    def step_up(self, ctx, state, payload, priors):
+        _, q_hat, bits = self._transmit(ctx, payload, priors)
+        return q_hat, bits, state
+
+
+# ---------------------------------------------------------------------------
+# MRC uplink over variable-size segments (adaptive allocation).
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class MRCAdaptiveChannel(StatelessUplink):
+    """Uplink MRC over variable-size segments (Isik et al. 2024 allocation).
+
+    GR: every client's candidates come from the common round key, so one
+    ``(n_is, d)`` draw per conveyed sample serves the cohort, and the
+    segment weights of all clients go through one ``ops.segment_logw`` call
+    (one kernel launch on the card).
+    """
+
+    n_is: int = 256
+    n_samples: int = 1
+
+    def _transmit(self, ctx, payload, priors):
+        """Returns (indices (n_act, n_samples, n_seg), q_hat (n_act, d), bits)."""
+        plan = ctx.plan
+        kt = ctx.key
+        sels = _vfold(prng.fold_in(kt, TAG_UL_SELECT), ctx.active_ids)
+        idxs, q_hat = mrc.transmit_segments(
+            kt, sels, clip01(payload), clip01(priors), plan.seg_ids, n_is=self.n_is,
+            n_seg=plan.n_blocks, n_samples=self.n_samples)
+        bits = ctx.n_active * self.n_samples * plan.billable * math.log2(self.n_is)
+        return idxs, q_hat, bits
 
     def step_up(self, ctx, state, payload, priors):
         _, q_hat, bits = self._transmit(ctx, payload, priors)

@@ -8,12 +8,15 @@ the block-allocation control plane, BitMeter accounting and the evaluation
 history.  Every client takes part in every round (BiCompFL-GR needs all of
 them to track the common candidate stream).
 
+The block plan is a host-side numpy decision each round, as in the
+reference: an adaptive allocation reads the round's KL statistic
+(``_kl_stats``), which costs one device-to-host copy per round.
+
 Not ported yet, and refused with ``NotImplementedError``: the fused
 whole-run path (``mode="fused"``), the wire audit, fault injection,
-checkpoint/resume, key-derived cohorts (``cohort_rng="jax"``) and
-allocations that need the round's KL profile.  Partial participation and
-the error-feedback sync of the baselines come with the schemes that use
-them.
+checkpoint/resume and key-derived cohorts (``cohort_rng="jax"``).  Partial
+participation and the error-feedback sync of the baselines come with the
+schemes that use them.
 """
 from __future__ import annotations
 
@@ -26,7 +29,9 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core import mrc
+from repro_torch.core.bernoulli import bern_kl, clip01
 from repro_torch.core.bitmeter import BitMeter
+from repro_torch.kernels import ops
 from .channels import BlockPlan, RoundContext, ServerUpdate, TAG_TRAIN
 from .data import Dataset
 
@@ -35,6 +40,29 @@ def _cohort_mean(ctx, x: torch.Tensor) -> torch.Tensor:
     """Mean over the cohort axis, rounded as the reference's ``jnp.mean``
     (fault-free rounds; the survivor-weighted form comes with faults)."""
     return mrc.sample_mean(x)
+
+
+def _kl_stats(payload: torch.Tensor, priors: torch.Tensor, *,
+              needs_profile: bool) -> torch.Tensor:
+    """The round's KL statistic, as ``alloc.plan`` reads it: the
+    per-parameter KL of the posteriors against the client priors, averaged
+    over the cohort (the profile, (d,)), or its mean over parameters (0-d).
+
+    On the card it goes through the CUDA ``bernoulli_kl`` kernel: the
+    profile (``ops.bernoulli_kl_profile``) when the allocation needs it,
+    else the mean KL ``ops.bernoulli_kl_total / d``.  On the CPU it is the
+    reference host loop's statistic, ``mean(bern_kl(payload, clip01(priors)),
+    axis=0)`` rounded as XLA rounds a mean, whatever ``needs_profile`` says:
+    it is what the reference feeds every adaptive allocation there.  The two
+    routes agree up to float32 rounding (the kernel's log/log1p form and
+    another summation order).
+    """
+    p = clip01(priors)
+    if payload.device.type == "cuda":
+        if needs_profile:
+            return ops.bernoulli_kl_profile(payload, p)
+        return ops.bernoulli_kl_total(payload, p) / payload.shape[-1]
+    return mrc.sample_mean(bern_kl(payload, p))
 
 
 class MeanModelAggregator:
@@ -94,10 +122,6 @@ class FLEngine:
                 raise NotImplementedError(f"{name}= is not ported yet")
         task, spec = self.task, self.spec
         alloc = spec.allocation
-        if alloc is not None and getattr(alloc, "needs_kl", True):
-            raise NotImplementedError(
-                f"allocation {type(alloc).__name__} needs the round's KL "
-                "profile; only FixedAllocation is ported")
 
         n = int(shards.y.shape[0])
         theta = task.init_theta() if theta0 is None else theta0
@@ -129,7 +153,11 @@ class FLEngine:
 
             plan = None
             if alloc is not None:
-                size, n_blocks, seg_ids, overhead = alloc.plan(None, d)
+                kl = None
+                if getattr(alloc, "needs_kl", True):
+                    kl = _kl_stats(payload, theta_hat, needs_profile=getattr(
+                        alloc, "needs_profile", True)).cpu().numpy()
+                size, n_blocks, seg_ids, overhead = alloc.plan(kl, d)
                 plan = BlockPlan(size=size, n_blocks=n_blocks, seg_ids=seg_ids,
                                  overhead_bits=overhead)
             ctx = RoundContext(t=t, key=kt, n_clients=n, d=d, active=active,

@@ -1,0 +1,126 @@
+"""Build and load the port's hand-written CUDA kernels (one shared helper).
+
+Each source under ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface and loaded with ``ctypes``, on first
+use, into ``build/kernels/`` at the root of a source checkout, or into
+``~/.cache/repro_torch/kernels`` (``$XDG_CACHE_HOME`` if set) when the
+package is installed elsewhere.  A library is named by a hash of its
+source, so an edited source is rebuilt.  Nothing is compiled when this
+module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+# Every kernel source of the port, by kernel name (``csrc/<name>.cu``).
+SOURCES = ("mrc_logw", "bernoulli_kl", "segment_logw")
+
+
+def _build_dir() -> Path:
+    """``build/kernels`` of the source checkout this module lies in, else a
+    per-user cache (an installed package has no checkout to build into)."""
+    root = Path(__file__).resolve().parents[3]
+    if (root / "pyproject.toml").is_file() and (root / "src" / "repro_torch").is_dir():
+        return root / "build" / "kernels"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "repro_torch" / "kernels"
+
+
+BUILD_DIR = _build_dir()
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+INT32_MAX = 2 ** 31 - 1
+
+
+def _nvcc(name: str) -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
+                       f"the {name} CUDA kernel cannot be built")
+
+
+def source(name: str) -> Path:
+    return CSRC / f"{name}.cu"
+
+
+def library_path(name: str) -> Path:
+    tag = hashlib.sha256(source(name).read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def build(name: str) -> dict:
+    """Compile ``csrc/<name>.cu`` unless this source's library exists.
+
+    Returns ``{"path", "seconds", "built", "log"}``; ``log`` holds nvcc's
+    ``-Xptxas -v`` report (registers, shared memory, spills).
+    """
+    so = library_path(name)
+    if so.exists():
+        return {"path": str(so), "seconds": 0.0, "built": False, "log": ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([_nvcc(name), *NVCC_FLAGS, "-o", tmp, str(source(name))],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) on {source(name)}:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return {"path": str(so), "seconds": time.perf_counter() - t0, "built": True,
+            "log": proc.stdout + proc.stderr}
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (built on first use).
+
+    Every library exports ``<name>_error_string(int) -> const char*``.
+    """
+    lib = ctypes.CDLL(build(name)["path"])
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return lib
+
+
+def check(name: str, lib: ctypes.CDLL, rc: int) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if rc != 0:
+        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} ({msg})")
+
+
+def check_cuda_inputs(name: str, ref, **tensors) -> None:
+    """Device, type and layout checks shared by the kernel wrappers: every
+    tensor lies on ``ref``'s CUDA device, is contiguous and is float32
+    (``seg_ids`` int32)."""
+    for tname, t in tensors.items():
+        if t.device.type != "cuda" or t.device != ref.device:
+            raise ValueError(f"{name}: {tname} is on {t.device}, expected the "
+                             f"CUDA device {ref.device}")
+        want = torch.int32 if tname == "seg_ids" else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{name}: {tname} is {t.dtype}, expected {want}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {tname} must be contiguous")

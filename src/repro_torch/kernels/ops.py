@@ -1,15 +1,28 @@
 """Routing wrappers around the port's kernels (port of ``repro.kernels.ops``).
 
-``mrc_logw`` takes the plain PyTorch version for a tensor on the CPU and the
+Each wrapper takes the plain PyTorch version for a tensor on the CPU and the
 hand-written CUDA kernel for a tensor on the card; it never falls back from
-one to the other.  ``mrc_logw.launches`` counts kernel launches, so a run can
-show that its main path went through the kernel.
+one to the other, and any other device raises.  Each has a ``launches``
+count that goes up by one where it launches its kernel and nowhere else, so
+a run can show that its main path went through the kernel.
 """
 from __future__ import annotations
 
 import torch
 
+from . import bernoulli_kl as _kl
+from . import segment_logw as _seg
 from .mrc_weights import mrc_logw_cuda, mrc_logw_ref
+
+
+def _route(fn, plain, kernel, t: torch.Tensor, *args):
+    if t.device.type == "cpu":
+        return plain(*args)
+    if t.device.type != "cuda":
+        raise ValueError(f"{fn.__name__} runs on cpu or cuda, not {t.device}")
+    out = kernel(*args)
+    fn.launches += 1
+    return out
 
 
 def mrc_logw(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -18,18 +31,55 @@ def mrc_logw(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     Drop-in ``logw_fn`` for ``repro_torch.core.mrc.encode_fixed`` (and its
     default there).  NIS and S may be ragged: the kernel needs no padding.
     """
-    if x.device.type == "cpu":
-        return mrc_logw_ref(x, a, b)
-    if x.device.type != "cuda":
-        raise ValueError(f"mrc_logw runs on cpu or cuda, not {x.device}")
-    out = mrc_logw_cuda(x, a, b)
-    mrc_logw.launches += 1
-    return out
+    return _route(mrc_logw, mrc_logw_ref, mrc_logw_cuda, x, x, a, b)
 
 
-mrc_logw.launches = 0
+def bernoulli_kl(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Per-block KL(q||p) sums; q, p (NB, S) -> (NB,) nats.  S may be ragged."""
+    return _route(bernoulli_kl, _kl.rows_ref, _kl.rows_cuda, q, q, p)
+
+
+def bernoulli_kl_total(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Mean-over-clients total KL(q||p): q, p (n, d) -> 0-d tensor (nats).
+
+    The statistic ``AdaptiveAvgAllocation`` reads (as ``total / d``).
+    """
+    return _route(bernoulli_kl_total, _kl.total_ref, _kl.total_cuda, q, q, p)
+
+
+def bernoulli_kl_profile(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Per-parameter cohort-mean KL(q||p): q, p (n, d) -> (d,) nats.
+
+    The statistic ``AdaptiveAllocation`` reads.  The kernel sums each
+    parameter's clients down a column: no transpose, no padding.
+    """
+    return _route(bernoulli_kl_profile, _kl.profile_ref, _kl.profile_cuda, q, q, p)
+
+
+def segment_logw(u: torch.Tensor, p: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor, seg_ids: torch.Tensor, n_seg: int) -> torch.Tensor:
+    """Segment MRC log-weights; u (NIS, D), p/a/b (D,) or (C, D), seg_ids
+    (D,) non-decreasing from 0 (int32 on the card) -> (..., NIS, n_seg).
+
+    Drop-in ``seg_logw_fn`` for ``repro_torch.core.mrc.encode_segments``
+    (and its default there).  ``u`` is shared by the clients: one launch
+    serves the cohort.
+    """
+    return _route(segment_logw, _seg.segment_logw_ref, _seg.segment_logw_cuda, u,
+                  u, p, a, b, seg_ids, n_seg)
+
+
+for _fn in (mrc_logw, bernoulli_kl, bernoulli_kl_total, bernoulli_kl_profile,
+            segment_logw):
+    _fn.launches = 0
 
 
 def mrc_logw_fn():
     """The ``logw_fn`` hook for ``encode_fixed`` (the kernel route)."""
     return mrc_logw
+
+
+def segment_logw_fn():
+    """The ``seg_logw_fn`` hook for ``encode_segments`` (the kernel route);
+    its launches are counted on ``segment_logw.launches``."""
+    return segment_logw

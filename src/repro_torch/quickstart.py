@@ -3,11 +3,17 @@
 
     PYTHONPATH=src python -m repro_torch.quickstart              # on the card
     PYTHONPATH=src python -m repro_torch.quickstart --device cpu
+    PYTHONPATH=src python -m repro_torch.quickstart --allocation adaptive
 
 Ten clients train a probabilistic mask over a frozen signed-constant MLP
 100->256->10 (d = 28160); all communication runs through bi-directional MRC
-with blocks of 128 and 64 candidates.  On the card the MRC importance
-weights go through the hand-written CUDA ``mrc_logw`` kernel.
+with 64 candidates, over blocks of 128 (``fixed``, the default), over
+equal blocks re-sized each round (``adaptive-avg``) or over variable
+segments of equal KL mass (``adaptive``), the paper's three allocations
+(``benchmarks/run.py`` ``table_main``).  On the card the MRC importance
+weights go through the hand-written CUDA kernels ``mrc_logw`` (equal
+blocks) and ``segment_logw`` (segments), and the adaptive plans read the
+round's KL through ``bernoulli_kl``.
 """
 from __future__ import annotations
 
@@ -15,7 +21,8 @@ import argparse
 import time
 
 from repro_torch import prng, resolve_device
-from repro_torch.core.blocks import FixedAllocation
+from repro_torch.core.blocks import (AdaptiveAllocation, AdaptiveAvgAllocation,
+                                     FixedAllocation)
 from repro_torch.fl.data import make_synthetic, partition_iid
 from repro_torch.fl.engine import FLEngine
 from repro_torch.fl.nets import make_mlp
@@ -24,7 +31,20 @@ from repro_torch.fl.tasks import make_mask_task
 
 CONFIG = dict(n_train=2000, n_test=500, hw=10, noise=0.4, n_clients=10,
               widths=(256,), local_epochs=3, lr=0.1, block_size=128, n_is=64,
-              rounds=15, eval_every=3, seed=0)
+              rounds=15, eval_every=3, seed=0, allocation="fixed")
+ALLOCATIONS = ("fixed", "adaptive-avg", "adaptive")
+
+
+def make_allocation(c):
+    """The configuration's block allocation (``c["allocation"]``)."""
+    name = c["allocation"]
+    if name == "fixed":
+        return FixedAllocation(c["block_size"])
+    if name == "adaptive-avg":
+        return AdaptiveAvgAllocation(n_is=c["n_is"])
+    if name == "adaptive":
+        return AdaptiveAllocation(n_is=c["n_is"])
+    raise ValueError(f"allocation {name!r} is not one of {ALLOCATIONS}")
 
 
 def build(device="cuda", cfg=None):
@@ -42,8 +62,7 @@ def build(device="cuda", cfg=None):
                           local_epochs=c["local_epochs"], lr=c["lr"])
     # GR: MRC uplink over shared candidates + index-relay downlink (which
     # relays the uplink indices, so the reference's n_dl=n_clients is unread).
-    spec = bicompfl_spec("GR", allocation=FixedAllocation(c["block_size"]),
-                         n_is=c["n_is"])
+    spec = bicompfl_spec("GR", allocation=make_allocation(c), n_is=c["n_is"])
     return task, spec, shards
 
 
@@ -60,9 +79,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--rounds", type=int, default=CONFIG["rounds"])
+    ap.add_argument("--allocation", choices=ALLOCATIONS, default=CONFIG["allocation"])
     args = ap.parse_args(argv)
     t0 = time.time()
-    out = run(args.device, rounds=args.rounds)
+    out = run(args.device, rounds=args.rounds, cfg={"allocation": args.allocation})
     print(f"model dimension d = {out['theta'].shape[0]} Bernoulli parameters")
     for h in out["history"]:
         print(f"round {h['round']:3d}  acc {h['acc']:.3f}  "

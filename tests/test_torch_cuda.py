@@ -10,19 +10,26 @@ only the port's dependencies:
 tests.)  The CPU tests in ``test_torch_mrc.py`` tie the plain versions to
 the JAX reference.
 """
+import numpy as np
 import pytest
 import torch
 
 from repro_torch import prng
 from repro_torch.core import mrc
-from repro_torch.core.bernoulli import log_ratio_coeffs
+from repro_torch.core.bernoulli import clip01, log_ratio_coeffs
+from repro_torch.kernels import bernoulli_kl as kl
 from repro_torch.kernels import ops
 from repro_torch.kernels.mrc_weights import mrc_logw_cuda, mrc_logw_ref
+from repro_torch.kernels.segment_logw import segment_logw_cuda, segment_logw_ref
 
 pytestmark = pytest.mark.cuda
 
 # fp32 S-term sums in another order than the plain version's GEMV.
 LOGW_RTOL, LOGW_ATOL = 1e-5, 1e-4
+# KL and segment sums: fp32 terms summed in another order; the bound is
+# relative to the sum of the terms' magnitudes (what the rounding scales
+# with), ~100 ulp of it.
+SUM_RTOL, SUM_ATOL = 1e-5, 1e-6
 
 
 @pytest.fixture
@@ -101,4 +108,127 @@ def test_encode_on_card_matches_cpu_route(cuda):
     assert same.to(torch.float32).mean() >= 0.99
     assert torch.equal(gpu.sample.cpu()[same], cpu.sample[same])
     dec = mrc.decode_fixed(key.to(cuda), gpu.indices, p.to(cuda), n_is=64)
+    assert torch.equal(dec, gpu.sample)
+
+
+def _assert_sums_close(got, want, scale):
+    assert got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= SUM_RTOL * scale + SUM_ATOL).all()), \
+        float((got - want).abs().max())
+
+
+def _kl_scale(q, p):
+    q, p = clip01(q), clip01(p)
+    return (q * (torch.log(q) - torch.log(p))).abs() \
+        + ((1 - q) * (torch.log1p(-q) - torch.log1p(-p))).abs()
+
+
+@pytest.mark.parametrize("shape", [(10, 28160), (7, 3001), (3, 5), (1, 1), (4, 2048),
+                                   (2200, 128), (1, 300000)])
+def test_bernoulli_kl_kernels_match_plain(cuda, shape):
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    q = torch.rand(shape, generator=gen, device=cuda)
+    p = torch.rand(shape, generator=gen, device=cuda)
+    q[0, 0], p[0, -1] = 0.0, 1.0                 # the 1e-6 clip
+    sc = _kl_scale(q, p)
+    n = shape[0]
+    _assert_sums_close(kl.rows_cuda(q, p), kl.rows_ref(q, p), sc.sum(-1))
+    _assert_sums_close(kl.total_cuda(q, p), kl.total_ref(q, p), sc.sum() / n)
+    _assert_sums_close(kl.profile_cuda(q, p), kl.profile_ref(q, p), sc.sum(0) / n)
+
+
+def test_bernoulli_kl_is_deterministic(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, p = (torch.rand(10, 28160, generator=gen, device=cuda) for _ in range(2))
+    assert torch.equal(kl.total_cuda(q, p), kl.total_cuda(q, p))
+    assert torch.equal(kl.profile_cuda(q, p), kl.profile_cuda(q, p))
+
+
+def _segmentation(kind, d, rng):
+    if kind == "single":
+        return np.zeros(d, np.int32), 1
+    if kind == "singletons":
+        return np.arange(d, dtype=np.int32), d
+    ids = np.sort(rng.integers(0, max(d // 7, 1), d)).astype(np.int32)
+    if kind == "random":                         # consecutive ids
+        ids = np.cumsum(np.r_[0, np.diff(ids) > 0]).astype(np.int32)
+    ids -= ids[0]                                # "skipping": empty segments
+    return ids, int(ids[-1]) + 1
+
+
+@pytest.mark.parametrize("kind", ["random", "skipping", "single", "singletons"])
+@pytest.mark.parametrize("clients,nis,d", [(10, 64, 28160), (3, 33, 1001), (2, 70, 513),
+                                           (None, 1, 7)])
+def test_segment_logw_kernel_matches_plain(cuda, kind, clients, nis, d):
+    """u (NIS, D) shared by the clients; ``clients=None`` is one client's
+    (D,) p, a, b."""
+    rng = np.random.default_rng(d + nis)
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    u = torch.rand(nis, d, generator=gen, device=cuda)
+    shape = (d,) if clients is None else (clients, d)
+    q, p = (torch.rand(shape, generator=gen, device=cuda) for _ in range(2))
+    a, b = (t.contiguous() for t in log_ratio_coeffs(q, p))
+    pc = clip01(p).contiguous()
+    seg, n_seg = _segmentation(kind, d, rng)
+    seg_t = torch.as_tensor(seg, device=cuda)
+    got = segment_logw_cuda(u, pc, a, b, seg_t, n_seg)
+    want = segment_logw_ref(u, pc, a, b, seg_t.long(), n_seg)
+    mag = segment_logw_ref(torch.zeros_like(u), torch.ones_like(pc), a.abs(), b.abs(),
+                           seg_t.long(), n_seg)
+    _assert_sums_close(got, want, mag)
+    assert torch.equal(got, segment_logw_cuda(u, pc, a, b, seg_t, n_seg))  # deterministic
+
+
+def test_new_ops_count_kernel_launches(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, p = (torch.rand(4, 300, generator=gen, device=cuda) for _ in range(2))
+    u = torch.rand(16, 300, generator=gen, device=cuda)
+    seg = torch.zeros(300, dtype=torch.int32, device=cuda)
+    for fn, args in [(ops.bernoulli_kl, (q, p)), (ops.bernoulli_kl_total, (q, p)),
+                     (ops.bernoulli_kl_profile, (q, p)),
+                     (ops.segment_logw, (u, p, q, p, seg, 1))]:
+        before = fn.launches
+        fn(*args)
+        assert fn.launches == before + 1
+    assert ops.segment_logw_fn() is ops.segment_logw
+
+
+def test_new_kernel_wrappers_refuse_bad_input(cuda):
+    q = torch.rand(4, 16, device=cuda)
+    u = torch.rand(8, 16, device=cuda)
+    seg = torch.zeros(16, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        kl.profile_cuda(q.double(), q.double())
+    with pytest.raises(ValueError):
+        kl.rows_cuda(q, q[:, :8])                        # shape mismatch
+    with pytest.raises(ValueError):
+        kl.total_cuda(q, q.cpu())                        # wrong device
+    with pytest.raises(TypeError):
+        segment_logw_cuda(u, q, q, q, seg.long(), 1)     # ids must be int32
+    with pytest.raises(ValueError):
+        segment_logw_cuda(u.t(), q, q, q, seg, 1)        # u of the wrong shape
+    with pytest.raises(ValueError):
+        segment_logw_cuda(u.expand(4, 8, 16), q, q, q, seg, 1)   # u per client
+    with pytest.raises(ValueError):
+        segment_logw_cuda(u[:, ::2], q[:, :8], q[:, :8], q[:, :8], seg[:8], 1)
+
+
+def test_segment_encode_on_card_matches_cpu_route(cuda):
+    """Full-width cohort segment encode: kernel on the card vs plain on the CPU."""
+    g = torch.Generator().manual_seed(8)
+    q = 0.05 + 0.9 * torch.rand(10, 28160, generator=g)
+    p = torch.clamp(q + 0.05 * torch.randn(10, 28160, generator=g), 0.05, 0.95)
+    seg = np.repeat(np.arange(40), 704).astype(np.int32)
+    key = prng.PRNGKey(11, device="cpu")
+    sels = prng.split(prng.PRNGKey(12, device="cpu"), 10)
+    cpu = mrc.encode_segments(key, sels, q, p, seg, n_is=64, n_seg=40)
+    gpu = mrc.encode_segments(key.to(cuda), sels.to(cuda), q.to(cuda), p.to(cuda), seg,
+                              n_is=64, n_seg=40)
+    same = gpu.indices.cpu() == cpu.indices
+    # transcendental functions round differently on the card: near-ties only
+    assert same.to(torch.float32).mean() >= 0.99
+    keep = same[:, torch.as_tensor(seg, dtype=torch.int64)]
+    assert torch.equal(gpu.sample.cpu()[keep], cpu.sample[keep])
+    dec = mrc.decode_segments(key.to(cuda), gpu.indices, p.to(cuda), seg, n_is=64)
     assert torch.equal(dec, gpu.sample)

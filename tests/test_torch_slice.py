@@ -27,7 +27,9 @@ from repro.fl.tasks import make_mask_task as j_make_task
 from repro import optim as j_optim
 from repro_torch import convert, prng
 from repro_torch import optim as t_optim
-from repro_torch.core.blocks import BlockPlan, FixedAllocation as TFixed
+from repro_torch.core.blocks import (AdaptiveAllocation as TAdaptive,
+                                     AdaptiveAvgAllocation as TAdaptiveAvg, BlockPlan,
+                                     FixedAllocation as TFixed)
 from repro_torch.fl import channels as tch
 from repro_torch.fl.data import make_synthetic as t_make_synthetic, partition_iid as t_partition
 from repro_torch.fl.engine import FLEngine as TEngine, MeanModelAggregator as TMean
@@ -237,8 +239,11 @@ def test_engine_run_matches_reference(ref):
 
 
 def test_registry_and_engine_refuse_what_is_not_ported(ref):
-    with pytest.raises(NotImplementedError):
-        t_spec("PR", allocation=TFixed(BLOCK))
+    for variant in ("PR", "GR-Reconst", "PR-SplitDL"):
+        with pytest.raises(NotImplementedError):
+            t_spec(variant, allocation=TFixed(BLOCK))
+    for alloc in (TAdaptive(n_is=N_IS), TAdaptiveAvg(n_is=N_IS)):   # ported since
+        assert t_spec("GR", allocation=alloc, n_is=N_IS).allocation is alloc
     with pytest.raises(ValueError):
         t_spec("nope", allocation=TFixed(BLOCK))
     with pytest.raises(NotImplementedError):
