@@ -25,7 +25,27 @@ Phases (each one fails the run with a non-zero exit; nothing is swallowed):
    on the same inputs (the CPU routes are tied to the JAX reference by the
    CPU tests);
 6. profile steady rounds of each path with ``torch.profiler``: device time
-   by kernel, and the device's idle share of an unprofiled steady round.
+   by kernel, and the device's idle share of an unprofiled steady round;
+7. hold the model substrate's kernels (``ops.flash_attention``,
+   ``ops.rwkv_time_mix``) against their plain versions at the serving
+   path's full-width shapes -- attention of Qwen3-1.7B at (2, 4096, 16 heads,
+   8 kv heads, 128) in bf16 and f32, RWKV-6 1.6B's mix at (2, 4096, 32, 64)
+   -- and at ragged shapes (a sliding window, a ragged sequence, strong
+   decay), with the same timings and bounds as phase 3 and
+   ``scaled_dot_product_attention`` as attention's library yardstick;
+8. prefill, bf16, full width and depth: ``transformer.prefill_step`` on
+   (2, 4096) seeded tokens for ``qwen3-1.7b`` (28 layers) and
+   ``rwkv6-1.6b`` (24 layers), counts set to 0 just before and read just
+   after (28 flash-attention and 24 RWKV launches); prefill time on the
+   host clock after a warm-up, and the kernels' share of the device time
+   from ``torch.profiler``;
+9. the same models in f32 at full depth: ``prefill_step``'s last logits on
+   a (2, 256) prompt against 256 teacher-forced ``serve_step``s (the kernel
+   against the decode path's einsum or per-token recurrence);
+10. serving, bf16: ``launch.serve.Server(cfg, max_batch=4, max_seq=128)
+   .generate`` on four seeded greedy requests (prompts of 16, 32, 48 and 64
+   tokens, 16 new tokens each), twice, with no kernel launch (decode runs
+   neither kernel, as in the reference); tokens per second.
 
 The second-to-last line is a JSON object ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -34,6 +54,7 @@ when torch sees no CUDA device.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import json
 import math
 import subprocess
@@ -54,11 +75,16 @@ from repro_torch.core.blocks import AdaptiveAllocation, AdaptiveAvgAllocation  #
 from repro_torch.fl.channels import TAG_TRAIN  # noqa: E402
 from repro_torch.fl.engine import FLEngine, _kl_stats  # noqa: E402
 from repro_torch.kernels import bernoulli_kl, build, mrc_weights, ops  # noqa: E402
+from repro_torch.kernels import flash_attn, rwkv_chunk  # noqa: E402
 from repro_torch.kernels.segment_logw import segment_logw_ref  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.launch.serve import Request, Server  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 
 ROUNDS = 5
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
 # fp32 S-term sums in another order than the plain version's GEMV: a few
 # ulp of the partial sums (|logW| here is O(10..100)).
 LOGW_RTOL, LOGW_ATOL = 1e-5, 1e-4
@@ -71,8 +97,23 @@ SUM_RTOL, SUM_ATOL = 1e-5, 1e-6
 # The card's and the CPU's transcendental functions round differently, so
 # a Gumbel-max near-tie may flip an index; everything else must agree.
 MIN_INDEX_MATCH = 0.99
+# Attention and the RWKV mix, kernel vs plain version: the same f32 terms
+# summed in another order, held within 1e-5 x the magnitude of the terms
+# (softmax-weighted |v|; |o|'s largest entry), plus, for a bf16 output, one
+# bf16 ulp of the output (both round an f32 result to 8 mantissa bits).
+MODEL_RTOL, BF16_ULPS = 1e-5, 1
+# f32 prefill (the flash kernel, or the chunked RWKV kernel) against 256
+# teacher-forced decode steps (einsum attention, per-token recurrence) at
+# full depth: relative L2 error of the last position's logits.  Two
+# summation orders of the same f32 function through 24-28 layers;
+# expected ~1e-5, asserted with margin.
+XCHECK_REL_L2 = 1e-3
+XCHECK_PROMPT = 256
+PREFILL_BATCH, PREFILL_SEQ = 2, 4096
+PROFILED_STEPS = 8
+MODELS = {"qwen3-1.7b": "flash_attention", "rwkv6-1.6b": "rwkv_time_mix"}
 KERNELS = ("mrc_logw", "bernoulli_kl", "bernoulli_kl_total", "bernoulli_kl_profile",
-           "segment_logw")
+           "segment_logw", "flash_attention", "rwkv_time_mix")
 PATHS = {"fixed": None, "adaptive": AdaptiveAllocation, "adaptive-avg": AdaptiveAvgAllocation}
 
 
@@ -94,28 +135,51 @@ def cuda_time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, flops_per_s: float = FP32_FLOPS_PER_S) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes}
 
 
-def launched_once(fn, *args):
+def launched_once(fn, *args, **kwargs):
     """Call an ``ops`` wrapper once and check that it launched its kernel."""
     before = fn.launches
-    out = fn(*args)
+    out = fn(*args, **kwargs)
     if fn.launches != before + 1:
         raise AssertionError(f"ops.{fn.__name__} did not launch its kernel on the card")
     torch.cuda.synchronize()
     return out
 
 
-def timed_row(name, shape, err, kernel, plain, library, nbytes, flops):
-    row = {"shape": list(shape), "max_abs_err": err, "ms": cuda_time_ms(kernel),
-           "plain_ms": cuda_time_ms(plain),
-           "library_ms": cuda_time_ms(library) if library is not None else None,
-           **bound(nbytes, flops)}
+def reset_counts():
+    for k in KERNELS:
+        getattr(ops, k).launches = 0
+
+
+def read_counts():
+    return {k: getattr(ops, k).launches for k in KERNELS}
+
+
+def device_profile(fn, per: int = 1):
+    """Run ``fn`` under ``torch.profiler``: (device busy ms per ``per``, the
+    CUDA events with device time).  Busy is 0 when the profiler saw none."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    return sum(e.self_device_time_total for e in events) / 1e3 / per, events
+
+
+def timed_row(name, shape, err, kernel, plain, library, nbytes, flops,
+              flops_per_s=FP32_FLOPS_PER_S, reps=50):
+    row = {"shape": list(shape), "max_abs_err": err, "ms": cuda_time_ms(kernel, reps),
+           "plain_ms": cuda_time_ms(plain, reps),
+           "library_ms": cuda_time_ms(library, reps) if library is not None else None,
+           **bound(nbytes, flops, flops_per_s)}
     lib = f"{row['library_ms']:.4f} ms" if library is not None else "none"
     log(f"{name} {tuple(shape)}: max|err| {err:.3e}  kernel {row['ms']:.4f} ms  "
         f"plain {row['plain_ms']:.4f} ms  library {lib}  bound {row['bound_ms']:.4f} ms "
@@ -306,13 +370,12 @@ def run_path(name):
     if PATHS[name] is not None:
         spec.allocation = logged(PATHS[name])(n_is=cfg["n_is"])
         spec.allocation.log = plans = []
-    for k in KERNELS:
-        getattr(ops, k).launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     out = FLEngine(task, spec).run(shards, rounds=ROUNDS, seed=cfg["seed"], eval_every=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: getattr(ops, k).launches for k in KERNELS}
+    launches = read_counts()
     log(f"path {name}: {ROUNDS} rounds in {wall:.3f} s; launches {launches}; "
         f"accuracy {[round(h['acc'], 4) for h in out['history']]}")
     if plans is not None:
@@ -441,14 +504,7 @@ def phase_profile(name, steady_round_s: float, rounds: int):
     task, spec, shards = quickstart.build("cuda", dict(quickstart.CONFIG, allocation=name))
     engine = FLEngine(task, spec)
     engine.run(shards, rounds=1)  # warm-up outside the window
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
-        engine.run(shards, rounds=rounds)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / rounds
+    busy_ms, kernels = device_profile(lambda: engine.run(shards, rounds=rounds), rounds)
     if busy_ms == 0:
         log(f"profile {name}: the profiler saw no device time (device busy: not measured)")
         return
@@ -462,6 +518,246 @@ def phase_profile(name, steady_round_s: float, rounds: int):
         if i < 10 or any(k in e.key for k in own):
             log(f"  {e.self_device_time_total / rounds / 1e3:8.3f} ms/round  "
                 f"x{e.count // rounds:<5d} {e.key[:100]}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the model substrate's kernels against their plain versions.
+# ---------------------------------------------------------------------------
+
+
+def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask leaves: the attention's data-dependent work."""
+    i = np.arange(sq)
+    hi = np.minimum(i + 1, skv) if causal else np.full(sq, skv)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def assert_model_close(name, got, want, mag):
+    """Kernel vs plain version within MODEL_RTOL x the terms' magnitude
+    (+ BF16_ULPS bf16 ulp of the output for a bf16 output)."""
+    tol = MODEL_RTOL * mag + 1e-6
+    if got.dtype == torch.bfloat16:
+        tol = tol + BF16_ULPS * torch.finfo(torch.bfloat16).eps * want.float().abs()
+    err = (got.float() - want.float()).abs()
+    if got.shape != want.shape or got.dtype != want.dtype \
+            or not bool(torch.isfinite(got).all()) or bool((err > tol).any()):
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)}, "
+                             f"max |err| {err.max().item()}, worst err/tol "
+                             f"{(err / tol).max().item()}")
+    return err.max().item()
+
+
+def check_flash(shape, dtype, causal, window, seed, timed):
+    b, s, h, hkv, dh = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b, s, h, dh, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(b, s, hkv, dh, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(b, s, hkv, dh, generator=gen, device="cuda").to(dtype)
+    kw = dict(causal=causal, window=window, scale=dh ** -0.5)
+    got = launched_once(ops.flash_attention, q, k, v, **kw)
+    want = flash_attn.flash_attention_ref(q, k, v, **kw)
+    mag = flash_attn.flash_attention_ref(q.float(), k.float(), v.float().abs(), **kw)
+    err = assert_model_close(f"flash_attention {shape} {dtype}", got, want, mag)
+    label = f"flash_attention {tuple(shape)} {str(dtype)[6:]} causal={causal} window={window}"
+    if not timed:
+        log(f"{label}: max|err| {err:.3e}")
+        return None
+    del want, mag
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=causal, scale=kw["scale"], enable_gqa=True)
+    esize = q.element_size()
+    nbytes = esize * (2 * q.numel() + k.numel() + v.numel())
+    flops = 4 * b * h * dh * visible_pairs(s, s, causal, window)
+    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    log(f"{label}:")
+    return timed_row("flash_attention", shape, err,
+                     lambda: ops.flash_attention(q, k, v, **kw),
+                     lambda: flash_attn.flash_attention_ref(q, k, v, **kw), library,
+                     nbytes, flops, rate, reps=10)
+
+
+def rwkv_flops(b, s, h, dh=64):
+    """The fewest f32 operations of the mix (an FMA is 2, an exp 1): the
+    per-token recurrence, per token and head, reads r.S (Dh Dh FMAs), updates
+    S = w*S + k(x)v (a product and an FMA each of Dh Dh), takes Dh exps for
+    w and adds the bonus (r*u*k).v (3 Dh + 2 Dh)."""
+    return b * s * h * (5 * dh * dh + 6 * dh)
+
+
+def check_rwkv(shape, seed, timed, strong=False):
+    b, s, h, dh = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r, k, v = (torch.randn(b, s, h, dh, generator=gen, device="cuda") for _ in range(3))
+    logw = -torch.exp(torch.randn(b, s, h, dh, generator=gen, device="cuda") - 2.0)
+    if strong:
+        logw.fill_(-15.0)
+    u = 0.1 * torch.randn(h, dh, generator=gen, device="cuda")
+    got = launched_once(ops.rwkv_time_mix, r, k, v, logw, u)
+    want = rwkv_chunk.rwkv_time_mix_ref(r, k, v, logw, u)
+    err = assert_model_close(f"rwkv_time_mix {shape}", got, want, want.abs().max())
+    label = f"rwkv_time_mix {tuple(shape)}{' logw=-15' if strong else ''}"
+    if not timed:
+        log(f"{label}: max|err| {err:.3e}")
+        return None
+    return timed_row("rwkv_time_mix", shape, err, lambda: ops.rwkv_time_mix(r, k, v, logw, u),
+                     lambda: rwkv_chunk.rwkv_time_mix_ref(r, k, v, logw, u), None,
+                     4 * (5 * r.numel() + u.numel()), rwkv_flops(b, s, h), reps=10)
+
+
+def phase_model_kernels():
+    rows = {}
+    full = (PREFILL_BATCH, PREFILL_SEQ, 16, 8, 128)   # Qwen3-1.7B's attention
+    rows["flash_bf16"] = check_flash(full, torch.bfloat16, True, 0, 1, timed=True)
+    rows["flash_f32"] = check_flash(full, torch.float32, True, 0, 2, timed=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        check_flash((1, 1000, 4, 2, 64), dtype, True, 256, 3, timed=False)
+        check_flash((2, 333, 6, 3, 40), dtype, False, 0, 4, timed=False)
+    rows["rwkv"] = check_rwkv((PREFILL_BATCH, PREFILL_SEQ, 32, 64), 5, timed=True)
+    check_rwkv((1, 1000, 32, 64), 6, timed=False)
+    check_rwkv((2, 4096, 32, 64), 7, timed=False, strong=True)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phases 8-10: the serving path of the model substrate.
+# ---------------------------------------------------------------------------
+
+
+def seeded_tokens(vocab, b, s, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, vocab, (b, s), generator=gen, device="cuda")
+
+
+def prefill_path(arch):
+    """Prefill at full width and depth, bf16: counts, logits, host time and
+    the kernels' share of the device time."""
+    cfg = configs.get(arch)
+    model = transformer.build(cfg)
+    params = transformer.init_params(model, seed=0, device="cuda")
+    batch = {"tokens": seeded_tokens(cfg.vocab, PREFILL_BATCH, PREFILL_SEQ, 11)}
+    torch.cuda.synchronize()
+    reset_counts()
+    logits = transformer.prefill_step(model, params, batch)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    expect = {k: 0 for k in KERNELS}
+    expect[MODELS[arch]] = cfg.n_layers
+    if launches != expect:
+        raise AssertionError(f"prefill {arch}: launches {launches}, expected {expect}")
+    if tuple(logits.shape) != (PREFILL_BATCH, 1, cfg.vocab) or logits.dtype != params["head"].dtype \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill {arch}: logits {tuple(logits.shape)} {logits.dtype} "
+                             "not finite or of the wrong shape")
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        transformer.prefill_step(model, params, batch)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    wall = float(np.median(walls))
+    busy, events = device_profile(lambda: transformer.prefill_step(model, params, batch))
+    name = "flash_attn_kernel" if MODELS[arch] == "flash_attention" else "rwkv_chunk_kernel"
+    own = sum(e.self_device_time_total for e in events if name in e.key) / 1e3
+    tokens = PREFILL_BATCH * PREFILL_SEQ
+    log(f"prefill {arch} {cfg.dtype} ({PREFILL_BATCH}, {PREFILL_SEQ}), {cfg.n_layers} layers: "
+        f"launches {launches}; {wall:.3f} ms median of {[round(w, 3) for w in walls]} ms "
+        f"(host clock, synchronised) = {tokens / wall * 1e3:.0f} tokens/s")
+    if busy == 0:
+        log(f"  profile: the profiler saw no device time (kernel share: not measured)")
+    else:
+        log(f"  profile: device busy {busy:.3f} ms ({busy / wall:.4f} of the unprofiled "
+            f"wall); {name} {own:.3f} ms = {own / busy:.4f} of the device time")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+            log(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    del params, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def crosscheck_path(arch):
+    """f32, full depth: prefill's last logits vs teacher-forced decode steps."""
+    cfg = dataclasses.replace(configs.get(arch), dtype="float32")
+    model = transformer.build(cfg)
+    params = transformer.init_params(model, seed=1, device="cuda")
+    toks = seeded_tokens(cfg.vocab, PREFILL_BATCH, XCHECK_PROMPT, 12)
+    reset_counts()
+    pre = transformer.prefill_step(model, params, {"tokens": toks})[:, -1]
+    n_kernel = read_counts()[MODELS[arch]]
+    cache = transformer.init_cache(model, PREFILL_BATCH, XCHECK_PROMPT, "cuda")
+    t0 = time.perf_counter()
+    for t in range(XCHECK_PROMPT):
+        dec, cache = transformer.serve_step(model, params, cache, toks[:, t:t + 1], t)
+    torch.cuda.synchronize()
+    dec = dec[:, -1]
+    rel = float(torch.linalg.vector_norm(pre - dec) / torch.linalg.vector_norm(dec))
+    same = torch.equal(pre.argmax(-1), dec.argmax(-1))
+    log(f"cross-check {arch} f32 ({PREFILL_BATCH}, {XCHECK_PROMPT}), {cfg.n_layers} layers: "
+        f"prefill ({n_kernel} kernel launches) vs {XCHECK_PROMPT} decode steps "
+        f"({time.perf_counter() - t0:.2f} s): relative L2 {rel:.3e} (bound {XCHECK_REL_L2}), "
+        f"argmax equal {same}, max|logit| {float(dec.abs().max()):.3f}")
+    if n_kernel != cfg.n_layers or not rel <= XCHECK_REL_L2 or not same:
+        raise AssertionError(f"cross-check {arch}: kernel launches {n_kernel}, relative L2 "
+                             f"{rel}, argmax equal {same}")
+    del params, cache
+    torch.cuda.empty_cache()
+    return rel
+
+
+def serve_path(arch):
+    """``Server.generate`` at full width, bf16: lengths, range, determinism,
+    no kernel launch; tokens per second and the device's busy share."""
+    cfg = configs.get(arch)
+    server = Server(cfg, max_batch=4, max_seq=128, seed=0, device="cuda")
+    rng = np.random.default_rng(13)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab, n), max_new_tokens=16)
+            for n in (16, 32, 48, 64)]
+    server.generate(reqs[:1])   # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    runs, walls = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        runs.append(server.generate(reqs))
+        walls.append(time.perf_counter() - t0)
+    launches = read_counts()
+    outs = runs[0]
+    if any(launches.values()):
+        raise AssertionError(f"serve {arch}: decode launched kernels {launches}")
+    if [len(o) for o in outs] != [16] * 4 \
+            or not all(((o >= 0) & (o < cfg.vocab)).all() for o in outs) \
+            or not all(np.array_equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError(f"serve {arch}: lengths {[len(o) for o in outs]}, tokens "
+                             "out of range or not deterministic")
+    steps, wall = 64 + 16 - 1, walls[1]
+    log(f"serve {arch} {cfg.dtype}: 4 requests (prompts 16/32/48/64, 16 new tokens each) "
+        f"in {walls[0]:.3f} s, then {wall:.3f} s = {64 / wall:.1f} generated tokens/s, "
+        f"{steps} decode steps of batch 4 ({1e3 * wall / steps:.2f} ms/step); launches "
+        f"{launches}; first tokens {[o[:4].tolist() for o in outs]}")
+    # Device time of PROFILED_STEPS decode steps at batch 4 (profiling all
+    # of generate records ~2.4e5 kernels and takes minutes to summarise).
+    cache = transformer.init_cache(server.model, 4, 128, "cuda")
+    tok = torch.as_tensor(np.stack([r.prompt[:PROFILED_STEPS] for r in reqs]), device="cuda")
+
+    def steps_run():
+        c = cache
+        for t in range(PROFILED_STEPS):
+            _, c = transformer.serve_step(server.model, server.params, c, tok[:, t:t + 1], t)
+
+    busy, events = device_profile(steps_run, PROFILED_STEPS)
+    if busy == 0:
+        log("  profile: the profiler saw no device time (busy share: not measured)")
+    else:
+        log(f"  profile of {PROFILED_STEPS} decode steps: device busy {busy:.3f} ms per step "
+            f"in {sum(e.count for e in events) // PROFILED_STEPS} kernels = "
+            f"{busy * steps / (1e3 * wall):.4f} of an unprofiled step")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+            log(f"    {e.self_device_time_total / 1e3 / PROFILED_STEPS:8.3f} ms/step  "
+                f"x{e.count // PROFILED_STEPS:<5d} {e.key[:90]}")
+    del server
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -513,8 +809,29 @@ def main() -> int:
     phase_profile("adaptive", steady["adaptive"], 1)
     phase_profile("adaptive-avg", steady["adaptive-avg"], 1)
 
+    t_fl = time.perf_counter()
+    # Phase 7.
+    model_rows = phase_model_kernels()
+
+    # Phases 8-10.
+    marks = [time.perf_counter()]
+    prefill = {arch: prefill_path(arch) for arch in MODELS}
+    marks.append(time.perf_counter())
+    for arch in MODELS:
+        crosscheck_path(arch)
+    marks.append(time.perf_counter())
+    served = {arch: serve_path(arch) for arch in MODELS}
+    marks.append(time.perf_counter())
+    log(f"phase seconds: build and FL phases 2-6 {t_fl - t0:.1f}, model kernels "
+        f"{marks[0] - t_fl:.1f}, prefill {marks[1] - marks[0]:.1f}, cross-check "
+        f"{marks[2] - marks[1]:.1f}, serve {marks[3] - marks[2]:.1f}")
+
     def by_path(*names):
         return {p: sum(runs[p][0][k] for k in names) for p in PATHS}
+
+    def by_model(name):
+        return {**{f"{arch} prefill": prefill[arch][name] for arch in MODELS},
+                **{f"{arch} serve": served[arch][name] for arch in MODELS}}
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = [("mrc_logw", "src/repro/kernels/mrc_weights.py:71", main_row,
@@ -523,7 +840,13 @@ def main() -> int:
              by_path("bernoulli_kl", "bernoulli_kl_total", "bernoulli_kl_profile"),
              {"profile": kl_rows["profile"], "total": kl_rows["total"]}),
             ("segment_logw", "src/repro/kernels/segment_logw.py:92", seg_row,
-             by_path("segment_logw"), {"shape": seg_row["shape"]})]
+             by_path("segment_logw"), {"shape": seg_row["shape"]}),
+            ("flash_attn", "src/repro/kernels/flash_attn.py:95", model_rows["flash_bf16"],
+             by_model("flash_attention"),
+             {"shape": model_rows["flash_bf16"]["shape"], "dtype": "bfloat16",
+              "f32": model_rows["flash_f32"]}),
+            ("rwkv_chunk", "src/repro/kernels/rwkv_chunk.py:90", model_rows["rwkv"],
+             by_model("rwkv_time_mix"), {"shape": model_rows["rwkv"]["shape"]})]
     kernels = [{"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{name}.cu", "replaces": replaces,
                 "launches": sum(per_path.values()), "launches_by_path": per_path,

@@ -46,3 +46,46 @@ def mask_task(w0_flat, x_test, y_test, *, dims: Sequence[int],
     return MaskTask(net=net, w0_flat=w0, unravel=unravel,
                     x_test=tensor(x_test, device),
                     y_test=tensor(y_test, device, torch.int64), **kw)
+
+
+def _array_tensor(arr, device) -> torch.Tensor:
+    """A tensor of the array's dtype and values (bf16 via its bit pattern)."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(resolve_device(device))
+    return torch.from_numpy(np.array(arr)).to(resolve_device(device))
+
+
+def _tree(node, fn):
+    if isinstance(node, dict):
+        return {k: _tree(v, fn) for k, v in node.items()}
+    return fn(node)
+
+
+def _first_leaf(node):
+    while isinstance(node, dict):
+        node = next(iter(node.values()))
+    return node
+
+
+def model_params(cfg, ref_params, device="cuda"):
+    """The reference's ``transformer.init_params`` tree (numpy leaves, as
+    ``jax.tree.map(np.asarray, params)``) as the port's parameters.
+
+    Values and layouts are kept (projections stay ``(d_in, d_out)``); the
+    stacked ``pattern`` leaves are unstacked along axis 0 into one layer
+    each (their leading axis is ``n_rep``), in the order
+    ``transformer.layer_plans`` runs them.
+    """
+    conv = lambda a: _array_tensor(a, device)  # noqa: E731
+    layers = [_tree(p, conv) for p in ref_params["prefix"]]
+    for stacked in ref_params["pattern"]:
+        n_rep = np.asarray(_first_leaf(stacked)).shape[0]
+        layers += [_tree(stacked, lambda a, r=r: conv(np.asarray(a)[r]))
+                   for r in range(n_rep)]
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: the tree holds {len(layers)} layers, "
+                         f"the config {cfg.n_layers}")
+    return {"embed": conv(ref_params["embed"]), "layers": layers,
+            "final_norm": conv(ref_params["final_norm"]), "head": conv(ref_params["head"])}

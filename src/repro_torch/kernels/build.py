@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # Every kernel source of the port, by kernel name (``csrc/<name>.cu``).
-SOURCES = ("mrc_logw", "bernoulli_kl", "segment_logw")
+SOURCES = ("mrc_logw", "bernoulli_kl", "segment_logw", "flash_attn", "rwkv_chunk")
 
 
 def _build_dir() -> Path:
@@ -124,3 +124,23 @@ def check_cuda_inputs(name: str, ref, **tensors) -> None:
             raise TypeError(f"{name}: {tname} is {t.dtype}, expected {want}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {tname} must be contiguous")
+
+
+def check_strided_inputs(name: str, tensors: dict, dtypes) -> None:
+    """Checks shared by the model kernels' wrappers (which read their inputs
+    through strides): one CUDA device, one of ``dtypes`` for all, unit
+    stride along the last axis, no autograd (these kernels have no
+    backward, as the TPU kernels had none)."""
+    ref = next(iter(tensors.values()))
+    for tname, t in tensors.items():
+        if t.device.type != "cuda" or t.device != ref.device:
+            raise ValueError(f"{name}: {tname} is on {t.device}, expected the CUDA "
+                             f"device {ref.device}")
+        if t.dtype not in dtypes or t.dtype != ref.dtype:
+            raise TypeError(f"{name}: {tname} is {t.dtype}; expected one of "
+                            f"{sorted(map(str, dtypes))}, the same for every input")
+        if t.requires_grad:
+            raise RuntimeError(f"{name}: {tname} requires grad, but the kernel has no "
+                               "backward")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: {tname} must have unit stride along its last axis")

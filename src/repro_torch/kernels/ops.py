@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 
 from . import bernoulli_kl as _kl
+from . import flash_attn as _fa
+from . import rwkv_chunk as _rw
 from . import segment_logw as _seg
 from .mrc_weights import mrc_logw_cuda, mrc_logw_ref
 
@@ -69,8 +71,35 @@ def segment_logw(u: torch.Tensor, p: torch.Tensor, a: torch.Tensor,
                   u, p, a, b, seg_ids, n_seg)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    scale: float = 1.0) -> torch.Tensor:
+    """Causal or sliding-window softmax attention; q (B, Sq, H, Dh), k/v
+    (B, Skv, Hkv, Dh) with H a multiple of Hkv -> (B, Sq, H, Dh) in q's type.
+
+    The kernel reads the model's layout: no kv-head repeat, no head fold,
+    no padding.  f32 or bf16; Dh a multiple of 8 up to 128.
+    """
+    def plain(q, k, v):
+        return _fa.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+
+    def kernel(q, k, v):
+        return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale)
+
+    return _route(flash_attention, plain, kernel, q, q, k, v)
+
+
+def rwkv_time_mix(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  logw: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Chunked RWKV-6 time-mix from a zero state; r/k/v/logw (B, S, H, 64),
+    u (H, 64) -> (B, S, H, 64) in r's type.  The final state is not returned.
+    """
+    return _route(rwkv_time_mix, _rw.rwkv_time_mix_ref, _rw.rwkv_time_mix_cuda, r,
+                  r, k, v, logw, u)
+
+
 for _fn in (mrc_logw, bernoulli_kl, bernoulli_kl_total, bernoulli_kl_profile,
-            segment_logw):
+            segment_logw, flash_attention, rwkv_time_mix):
     _fn.launches = 0
 
 

@@ -1,0 +1,186 @@
+"""Transformer building blocks: norms, RoPE, GQA attention, FFN (port of
+``repro.models.layers``).
+
+Parameters are plain dictionaries of tensors with the reference's names
+and layouts (a projection ``w`` is ``(d_in, d_out)`` and applies as
+``x @ w``), so ``convert.model_params`` carries the reference's values
+across as they are.  The reference's ``sharding.constraint`` layout hints
+do no arithmetic and have no counterpart: the port runs on one card.
+
+``attention`` (training and prefill) goes through ``kernels.ops
+.flash_attention``, once per call: the CUDA kernel on the card, the port of
+the reference's chunked lazy-softmax scan on the CPU.  ``decode_attention``
+is plain PyTorch, as the reference computes it outside any Pallas kernel.
+M-RoPE and the int8 KV cache are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attn import NEG_INF
+from .config import ArchConfig
+
+
+def dtype_of(cfg: ArchConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def normal(gen: torch.Generator, shape, std: float, dtype: torch.dtype) -> torch.Tensor:
+    """``N(0, std^2)`` drawn in f32 from ``gen`` on its device, then cast."""
+    return (torch.randn(shape, generator=gen, device=gen.device) * std).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = xf.square().mean(-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.to(torch.float32))).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """Inverse frequencies (head_dim/2,) float32."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    # theta as an f32 tensor made on the device: no host-to-device copy
+    base = torch.full((), theta, dtype=torch.float32, device=device)
+    return 1.0 / torch.pow(base, exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding.  x: (..., S, H, Dh); positions: broadcastable (..., S)."""
+    inv = rope_freqs(x.shape[-1], theta, x.device)
+    ang = positions[..., None].to(torch.float32) * inv            # (..., S, Dh/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def rotate(cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    if cfg.rope_kind == "none":
+        return x
+    if cfg.rope_kind == "mrope":
+        raise NotImplementedError("M-RoPE (rope_kind='mrope') is not ported yet")
+    return apply_rope(x, positions, cfg.rope_theta)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def init_attn(gen: torch.Generator, cfg: ArchConfig):
+    d, h, hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = dtype_of(cfg)
+    std = d ** -0.5
+    params = {
+        "wq": normal(gen, (d, h * dh), std, dt),
+        "wk": normal(gen, (d, hk * dh), std, dt),
+        "wv": normal(gen, (d, hk * dh), std, dt),
+        "wo": normal(gen, (h * dh, d), std, dt),
+    }
+    if cfg.qk_norm:
+        params["q_norm"] = torch.zeros((dh,), dtype=dt, device=gen.device)
+        params["k_norm"] = torch.zeros((dh,), dtype=dt, device=gen.device)
+    return params
+
+
+def _qkv(cfg: ArchConfig, params, x: torch.Tensor):
+    b, s, _ = x.shape
+    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ params["wq"]).reshape(b, s, h, dh)
+    k = (x @ params["wk"]).reshape(b, s, hk, dh)
+    v = (x @ params["wv"]).reshape(b, s, hk, dh)
+    if cfg.qk_norm:
+        q = rmsnorm(q, params["q_norm"])
+        k = rmsnorm(k, params["k_norm"])
+    return q, k, v
+
+
+def attention(cfg: ArchConfig, params, x: torch.Tensor,
+              positions: torch.Tensor) -> torch.Tensor:
+    """Multi-head GQA self attention (training / prefill).
+
+    x: (B, S, d); positions: (B, S) or (1, S).  One ``ops.flash_attention``
+    call per layer.
+    """
+    b, s, _ = x.shape
+    q, k, v = _qkv(cfg, params, x)
+    q = rotate(cfg, q, positions)
+    k = rotate(cfg, k, positions)
+    out = ops.flash_attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window,
+                              scale=cfg.head_dim ** -0.5)
+    return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ params["wo"]
+
+
+def decode_attention(cfg: ArchConfig, params, x: torch.Tensor, pos: int, kv_cache):
+    """Single-token decode attention with an explicit validity mask.
+
+    x: (B, 1, d); pos: the current absolute position (== tokens so far).
+    kv_cache: (k, v), each (B, S_max, Hkv, Dh), written in place at ``pos``
+    (the reference returns updated copies; in place saves a cache copy per
+    layer and step) and returned.  Positions > pos are masked.  For
+    sliding-window configs the cache holds only the window and is written at
+    ``pos % S_max`` (ring buffer).
+    """
+    if cfg.kv_cache_quant:
+        raise NotImplementedError("the int8 KV cache (kv_cache_quant) is not ported yet")
+    b, s, _ = x.shape
+    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    ck, cv = kv_cache
+    s_max = ck.shape[1]
+    ring = cfg.sliding_window > 0
+
+    q, k, v = _qkv(cfg, params, x)
+    posv = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    q = rotate(cfg, q, posv)
+    k = rotate(cfg, k, posv)
+
+    # lax.dynamic_update_slice clamps its start index into the array.
+    slot = pos % s_max if ring else min(pos, s_max - 1)
+    ck[:, slot:slot + 1] = k.to(ck.dtype)
+    cv[:, slot:slot + 1] = v.to(cv.dtype)
+
+    rep = h // hk
+    kk = ck.to(torch.float32).repeat_interleave(rep, dim=2)
+    vv = cv.to(torch.float32).repeat_interleave(rep, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32) * dh ** -0.5, kk)
+    kpos = torch.arange(s_max, device=x.device)
+    valid = kpos < min(pos + 1, s_max) if ring else kpos <= min(pos, s_max - 1)
+    scores = torch.where(valid[None, None, None], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vv).to(x.dtype)
+    return out.reshape(b, s, h * dh) @ params["wo"], (ck, cv)
+
+
+# ---------------------------------------------------------------------------
+# Dense (SwiGLU) FFN
+# ---------------------------------------------------------------------------
+
+
+def init_ffn(gen: torch.Generator, cfg: ArchConfig, d_ff: Optional[int] = None):
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    dt = dtype_of(cfg)
+    return {
+        "w_gate": normal(gen, (d, ff), d ** -0.5, dt),
+        "w_up": normal(gen, (d, ff), d ** -0.5, dt),
+        "w_down": normal(gen, (ff, d), ff ** -0.5, dt),
+    }
+
+
+def ffn(params, x: torch.Tensor) -> torch.Tensor:
+    hidden = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    return hidden @ params["w_down"]

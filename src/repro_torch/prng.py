@@ -198,3 +198,20 @@ def normal(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
     u = uniform(key, shape, lo, 1.0)
     sqrt2 = torch.tensor(math.sqrt(2.0), dtype=torch.float32, device=key.device)
     return sqrt2 * torch.erfinv(u)
+
+
+def gumbel(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
+    """``jax.random.gumbel`` in float32 (the default "low" mode):
+    ``-log(-log(uniform(key, shape, tiny, 1)))``.
+
+    The uniforms are bit-exact; torch's ``log`` may differ from XLA's in
+    the last ulp.
+    """
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(uniform(key, shape, tiny, 1.0)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """``jax.random.categorical`` (with replacement): the Gumbel-max sample,
+    ``argmax(gumbel(key, logits.shape) + logits, axis)`` (int64)."""
+    return torch.argmax(gumbel(key, logits.shape) + logits, dim=axis)

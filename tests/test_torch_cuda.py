@@ -232,3 +232,144 @@ def test_segment_encode_on_card_matches_cpu_route(cuda):
     assert torch.equal(gpu.sample.cpu()[keep], cpu.sample[keep])
     dec = mrc.decode_segments(key.to(cuda), gpu.indices, p.to(cuda), seg, n_is=64)
     assert torch.equal(dec, gpu.sample)
+
+
+# ---------------------------------------------------------------------------
+# The model substrate's kernels: flash attention and the chunked RWKV-6 mix.
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import flash_attn as fa  # noqa: E402
+from repro_torch.kernels import rwkv_chunk as rc  # noqa: E402
+
+# f32 inputs: the kernel sums the same f32 terms as its plain version in
+# another order, so it is held within 1e-5 x the magnitude of those terms
+# (softmax-weighted |v| for attention, |o|'s largest entry for RWKV).
+F32_RTOL = 1e-5
+# bf16 outputs: both round an f32 result to bf16 (8 bits of mantissa), so
+# one bf16 ulp of the output's magnitude, plus the f32 noise above.
+BF16_ULPS = 1
+
+
+def _bf16_ulp(x):
+    return torch.finfo(torch.bfloat16).eps * x.abs().to(torch.float32)
+
+
+def _flash_inputs(b, sq, skv, h, hkv, dh, dtype, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(b, sq, h, dh, generator=gen, device=device).to(dtype)
+    k = torch.randn(b, skv, hkv, dh, generator=gen, device=device).to(dtype)
+    v = torch.randn(b, skv, hkv, dh, generator=gen, device=device).to(dtype)
+    return q, k, v
+
+
+def _assert_attn_close(got, q, k, v, **kw):
+    want = fa.flash_attention_ref(q, k, v, **kw)
+    # magnitude of the terms: the same attention over |v|
+    mag = fa.flash_attention_ref(q.float(), k.float(), v.float().abs(), **kw)
+    tol = F32_RTOL * mag + 1e-6
+    if got.dtype == torch.bfloat16:
+        tol = tol + BF16_ULPS * _bf16_ulp(want)
+    err = (got.float() - want.float()).abs()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= tol).all()), float((err / tol).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,causal,window", [
+    ((1, 128, 128, 2, 2, 128), True, 0), ((2, 64, 96, 4, 2, 32), False, 0),
+    ((1, 130, 257, 2, 1, 64), True, 0), ((2, 32, 512, 8, 8, 128), False, 0),
+    ((1, 1000, 1000, 4, 2, 64), True, 256), ((2, 77, 77, 6, 3, 40), True, 16),
+    ((1, 1, 1, 1, 1, 8), True, 0)])
+def test_flash_attention_kernel_matches_plain(cuda, shape, causal, window, dtype):
+    q, k, v = _flash_inputs(*shape, dtype=dtype, device=cuda, seed=sum(shape))
+    kw = dict(causal=causal, window=window, scale=shape[-1] ** -0.5)
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_attn_close(got, q, k, v, **kw)
+
+
+def test_flash_attention_kernel_reads_strided_views(cuda):
+    """q, k, v sliced out of one fused (B, S, H + 2 Hkv, Dh) projection."""
+    qkv = torch.randn(2, 100, 8, 64, device=cuda)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    assert not q.is_contiguous()
+    got = fa.flash_attention_cuda(q, k, v, causal=True, scale=0.125)
+    torch.cuda.synchronize()
+    _assert_attn_close(got, q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+                       scale=0.125)
+
+
+def _rwkv_inputs(b, s, h, dtype, device, seed, strong=False):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    r, k, v = (torch.randn(b, s, h, 64, generator=gen, device=device) for _ in range(3))
+    logw = -torch.exp(torch.randn(b, s, h, 64, generator=gen, device=device) - 2.0)
+    if strong:
+        logw = torch.full_like(logw, -15.0)
+    u = 0.1 * torch.randn(h, 64, generator=gen, device=device)
+    return (*(t.to(dtype) for t in (r, k, v, logw)), u)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,strong", [(2, 128, 2, False), (2, 100, 2, False),
+                                          (1, 64, 3, True), (3, 1, 2, False),
+                                          (2, 300, 4, True), (1, 1000, 2, False)])
+def test_rwkv_kernel_matches_plain(cuda, b, s, h, strong, dtype):
+    r, k, v, logw, u = _rwkv_inputs(b, s, h, dtype, cuda, seed=s + h, strong=strong)
+    got = rc.rwkv_time_mix_cuda(r, k, v, logw, u)
+    torch.cuda.synchronize()
+    want = rc.rwkv_time_mix_ref(r, k, v, logw, u)
+    assert got.shape == want.shape and got.dtype == dtype
+    assert bool(torch.isfinite(got).all())
+    tol = F32_RTOL * want.float().abs().max() + 1e-6
+    if dtype == torch.bfloat16:
+        tol = tol + BF16_ULPS * _bf16_ulp(want)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= tol).all()), float((err / tol).max())
+
+
+def test_model_kernel_ops_count_launches(cuda):
+    q, k, v = _flash_inputs(1, 64, 64, 4, 2, 32, torch.bfloat16, cuda, 1)
+    r, kk, vv, logw, u = _rwkv_inputs(1, 70, 2, torch.float32, cuda, 2)
+    for fn, args, kw in [(ops.flash_attention, (q, k, v), dict(causal=True, scale=0.2)),
+                         (ops.rwkv_time_mix, (r, kk, vv, logw, u), {})]:
+        before = fn.launches
+        fn(*args, **kw)
+        fn(*args, **kw)
+        assert fn.launches == before + 2
+
+
+def test_model_kernel_wrappers_refuse_bad_input(cuda):
+    q, k, v = _flash_inputs(1, 16, 16, 4, 2, 32, torch.float32, cuda, 3)
+    with pytest.raises(TypeError):
+        fa.flash_attention_cuda(q.double(), k.double(), v.double())     # dtype
+    with pytest.raises(TypeError):
+        fa.flash_attention_cuda(q, k.bfloat16(), v)                     # mixed dtypes
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(*(t[..., :12] for t in (q, k, v)))      # Dh 12
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(*(torch.randn(1, 16, 4, 136, device=cuda)
+                                  for _ in range(3)))                   # Dh 136
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(q[:, :, :3], k, v)                      # H % Hkv
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(q, k.cpu(), v)                          # device
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(q[..., ::2], k[..., ::2], v[..., ::2])  # last stride
+    with pytest.raises(RuntimeError, match="grad"):
+        fa.flash_attention_cuda(q.requires_grad_(), k, v)
+    r, kk, vv, logw, u = _rwkv_inputs(1, 70, 2, torch.float32, cuda, 4)
+    with pytest.raises(TypeError):
+        rc.rwkv_time_mix_cuda(r.double(), kk.double(), vv.double(), logw.double(), u)
+    with pytest.raises(TypeError):
+        rc.rwkv_time_mix_cuda(r, kk, vv, logw, u.double())
+    with pytest.raises(ValueError):
+        rc.rwkv_time_mix_cuda(*(t[..., :32] for t in (r, kk, vv, logw)), u[:, :32])
+    with pytest.raises(ValueError):
+        rc.rwkv_time_mix_cuda(r, kk, vv, logw, u[:1])                   # u shape
+    with pytest.raises(ValueError):
+        rc.rwkv_time_mix_cuda(r, kk.cpu(), vv, logw, u)
+    with pytest.raises(RuntimeError, match="grad"):
+        rc.rwkv_time_mix_cuda(r.requires_grad_(), kk, vv, logw, u)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        ops.rwkv_time_mix(*(t.to("meta") for t in (r, kk, vv, logw, u)))
