@@ -7,8 +7,10 @@ Phases (each one fails the run with a non-zero exit; nothing is swallowed):
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the hand-written CUDA kernels from this checkout's sources, in
-   parallel (one ``nvcc`` per source), and print the build times and
-   ``ptxas`` reports;
+   parallel (one ``nvcc`` per source), and print the build times, the
+   ``ptxas`` reports and a line per kernel (registers, spills, static
+   shared memory); count the ``HGMMA`` (wgmma) instructions in the flash
+   library's SASS, which must not be 0;
 3. hold each kernel, through the routing wrapper the main paths call
    (``kernels.ops``), against its plain PyTorch version on the card, at the
    main paths' shapes (round 0 of the quickstart at full width for the KL
@@ -31,7 +33,9 @@ Phases (each one fails the run with a non-zero exit; nothing is swallowed):
    path's full-width shapes -- attention of Qwen3-1.7B at (2, 4096, 16 heads,
    8 kv heads, 128) in bf16 and f32, RWKV-6 1.6B's mix at (2, 4096, 32, 64)
    -- and at ragged shapes (a sliding window, a ragged sequence, strong
-   decay), with the same timings and bounds as phase 3 and
+   decay; for the bf16 wgmma kernel every Dh class, Sq off its 128-row
+   blocks and Sq != Skv; RWKV with B * H above the 132 SMs and in bf16),
+   with the same timings and bounds as phase 3 and
    ``scaled_dot_product_attention`` as attention's library yardstick;
 8. prefill, bf16, full width and depth: ``transformer.prefill_step`` on
    (2, 4096) seeded tokens for ``qwen3-1.7b`` (28 layers) and
@@ -114,6 +118,9 @@ PROFILED_STEPS = 8
 MODELS = {"qwen3-1.7b": "flash_attention", "rwkv6-1.6b": "rwkv_time_mix"}
 KERNELS = ("mrc_logw", "bernoulli_kl", "bernoulli_kl_total", "bernoulli_kl_profile",
            "segment_logw", "flash_attention", "rwkv_time_mix")
+# Device function names of each model kernel (bf16 and f32 flash; RWKV's two passes).
+KERNEL_SYMBOLS = {"flash_attention": ("flash_attn_wgmma", "flash_attn_kernel"),
+                  "rwkv_time_mix": ("rwkv_intra", "rwkv_inter")}
 PATHS = {"fixed": None, "adaptive": AdaptiveAllocation, "adaptive-avg": AdaptiveAvgAllocation}
 
 
@@ -140,6 +147,28 @@ def bound(nbytes: float, flops: float, flops_per_s: float = FP32_FLOPS_PER_S) ->
     t_ops = flops / flops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes}
+
+
+def ptxas_summary(text: str) -> list[str]:
+    """One line per kernel from nvcc's ``-Xptxas -v`` report: registers,
+    spill bytes and static shared memory (the dynamic part is set at launch)."""
+    lines, fn, spill = [], None, ""
+    for line in text.splitlines():
+        if "Function properties for" in line:
+            fn, spill = line.split("Function properties for")[-1].strip(), ""
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and fn:
+            lines.append(f"{fn}: {line.split(':', 1)[-1].strip()}; {spill}")
+            fn = None
+    return lines
+
+
+def sass_count(path: str, opcode: str) -> int:
+    """Instructions of ``opcode`` in a library's SASS (``cuobjdump -sass``)."""
+    sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    return sum(f" {opcode}" in line for line in sass.splitlines())
 
 
 def launched_once(fn, *args, **kwargs):
@@ -548,18 +577,21 @@ def assert_model_close(name, got, want, mag):
     return err.max().item()
 
 
-def check_flash(shape, dtype, causal, window, seed, timed):
+def check_flash(shape, dtype, causal, window, seed, timed, skv=None):
+    """``shape`` is (B, Sq, H, Hkv, Dh); the keys number ``skv`` (Sq if None)."""
     b, s, h, hkv, dh = shape
+    skv = s if skv is None else skv
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn(b, s, h, dh, generator=gen, device="cuda").to(dtype)
-    k = torch.randn(b, s, hkv, dh, generator=gen, device="cuda").to(dtype)
-    v = torch.randn(b, s, hkv, dh, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(b, skv, hkv, dh, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(b, skv, hkv, dh, generator=gen, device="cuda").to(dtype)
     kw = dict(causal=causal, window=window, scale=dh ** -0.5)
     got = launched_once(ops.flash_attention, q, k, v, **kw)
     want = flash_attn.flash_attention_ref(q, k, v, **kw)
     mag = flash_attn.flash_attention_ref(q.float(), k.float(), v.float().abs(), **kw)
     err = assert_model_close(f"flash_attention {shape} {dtype}", got, want, mag)
-    label = f"flash_attention {tuple(shape)} {str(dtype)[6:]} causal={causal} window={window}"
+    label = (f"flash_attention {tuple(shape)} skv={skv} {str(dtype)[6:]} causal={causal} "
+             f"window={window}")
     if not timed:
         log(f"{label}: max|err| {err:.3e}")
         return None
@@ -586,18 +618,19 @@ def rwkv_flops(b, s, h, dh=64):
     return b * s * h * (5 * dh * dh + 6 * dh)
 
 
-def check_rwkv(shape, seed, timed, strong=False):
+def check_rwkv(shape, seed, timed, strong=False, dtype=torch.float32):
     b, s, h, dh = shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
     r, k, v = (torch.randn(b, s, h, dh, generator=gen, device="cuda") for _ in range(3))
     logw = -torch.exp(torch.randn(b, s, h, dh, generator=gen, device="cuda") - 2.0)
     if strong:
         logw.fill_(-15.0)
+    r, k, v, logw = (t.to(dtype) for t in (r, k, v, logw))
     u = 0.1 * torch.randn(h, dh, generator=gen, device="cuda")
     got = launched_once(ops.rwkv_time_mix, r, k, v, logw, u)
     want = rwkv_chunk.rwkv_time_mix_ref(r, k, v, logw, u)
-    err = assert_model_close(f"rwkv_time_mix {shape}", got, want, want.abs().max())
-    label = f"rwkv_time_mix {tuple(shape)}{' logw=-15' if strong else ''}"
+    err = assert_model_close(f"rwkv_time_mix {shape}", got, want, want.float().abs().max())
+    label = f"rwkv_time_mix {tuple(shape)} {str(dtype)[6:]}{' logw=-15' if strong else ''}"
     if not timed:
         log(f"{label}: max|err| {err:.3e}")
         return None
@@ -614,9 +647,20 @@ def phase_model_kernels():
     for dtype in (torch.float32, torch.bfloat16):
         check_flash((1, 1000, 4, 2, 64), dtype, True, 256, 3, timed=False)
         check_flash((2, 333, 6, 3, 40), dtype, False, 0, 4, timed=False)
+    # The bf16 wgmma kernel at every Dh class, Sq off its 128-row blocks,
+    # Sq != Skv and a window across tile edges.
+    for i, (shape, causal, window, skv) in enumerate([
+            ((1, 200, 2, 1, 8), True, 0, None), ((2, 200, 4, 2, 40), True, 0, None),
+            ((2, 150, 4, 2, 64), True, 0, None), ((1, 330, 16, 8, 128), True, 0, None),
+            ((1, 100, 4, 2, 64), True, 0, 300), ((1, 300, 2, 2, 128), True, 0, 100),
+            ((2, 90, 4, 1, 40), False, 0, 250), ((1, 1000, 16, 8, 128), True, 256, None),
+            ((1, 4095, 16, 8, 128), True, 0, None)]):
+        check_flash(shape, torch.bfloat16, causal, window, 20 + i, timed=False, skv=skv)
     rows["rwkv"] = check_rwkv((PREFILL_BATCH, PREFILL_SEQ, 32, 64), 5, timed=True)
     check_rwkv((1, 1000, 32, 64), 6, timed=False)
     check_rwkv((2, 4096, 32, 64), 7, timed=False, strong=True)
+    check_rwkv((3, 1500, 48, 64), 8, timed=False)    # B * H = 144 > 132 SMs, ragged tail
+    check_rwkv((2, 4096, 32, 64), 9, timed=False, dtype=torch.bfloat16)
     return rows
 
 
@@ -658,8 +702,9 @@ def prefill_path(arch):
         walls.append(1e3 * (time.perf_counter() - t0))
     wall = float(np.median(walls))
     busy, events = device_profile(lambda: transformer.prefill_step(model, params, batch))
-    name = "flash_attn_kernel" if MODELS[arch] == "flash_attention" else "rwkv_chunk_kernel"
-    own = sum(e.self_device_time_total for e in events if name in e.key) / 1e3
+    names = KERNEL_SYMBOLS[MODELS[arch]]
+    own = sum(e.self_device_time_total for e in events if any(n in e.key for n in names)) / 1e3
+    name = " + ".join(names)
     tokens = PREFILL_BATCH * PREFILL_SEQ
     log(f"prefill {arch} {cfg.dtype} ({PREFILL_BATCH}, {PREFILL_SEQ}), {cfg.n_layers} layers: "
         f"launches {launches}; {wall:.3f} ms median of {[round(w, 3) for w in walls]} ms "
@@ -780,6 +825,12 @@ def main() -> int:
         log(f"  {name}: {res['seconds']:.2f} s, built={res['built']}, {res['path']}")
         for line in res["log"].strip().splitlines():
             log(f"    {line}")
+        for line in ptxas_summary(res["log"]):
+            log(f"  ptxas {name}: {line}")
+    hgmma = sass_count(builds["flash_attn"]["path"], "HGMMA")
+    log(f"flash_attn library: {hgmma} HGMMA instructions (cuobjdump -sass)")
+    if not hgmma:
+        raise AssertionError("the flash_attn library issues no wgmma (no HGMMA in its SASS)")
 
     # Phase 3.
     main_row = check_mrc_logw((2200, 64, 128), seed=1)
@@ -844,7 +895,7 @@ def main() -> int:
             ("flash_attn", "src/repro/kernels/flash_attn.py:95", model_rows["flash_bf16"],
              by_model("flash_attention"),
              {"shape": model_rows["flash_bf16"]["shape"], "dtype": "bfloat16",
-              "f32": model_rows["flash_f32"]}),
+              "f32": model_rows["flash_f32"], "hgmma_in_sass": hgmma}),
             ("rwkv_chunk", "src/repro/kernels/rwkv_chunk.py:90", model_rows["rwkv"],
              by_model("rwkv_time_mix"), {"shape": model_rows["rwkv"]["shape"]})]
     kernels = [{"name": name, "route": "cuda",

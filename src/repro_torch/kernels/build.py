@@ -5,8 +5,11 @@ shared library with a plain C interface and loaded with ``ctypes``, on first
 use, into ``build/kernels/`` at the root of a source checkout, or into
 ``~/.cache/repro_torch/kernels`` (``$XDG_CACHE_HOME`` if set) when the
 package is installed elsewhere.  A library is named by a hash of its
-source, so an edited source is rebuilt.  Nothing is compiled when this
-module is imported.
+source and of the ``csrc/`` headers it includes (``#include "x.cuh"``,
+followed through headers), so an edited source or header is rebuilt.
+Nothing is compiled when this module is imported.  The flash kernel's
+tensor maps are encoded through ``cudaGetDriverEntryPoint``, so no library
+links against the driver (``-lcuda``).
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -43,24 +47,44 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 INT32_MAX = 2 ** 31 - 1
 
 
-def _nvcc(name: str) -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(tool: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``): on PATH, else
+    under ``$CUDA_HOME/bin`` or ``/usr/local/cuda/bin``."""
+    found = shutil.which(tool)
     if found:
         return found
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(home) / "bin" / "nvcc"
+    cand = Path(home) / "bin" / tool
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
-                       f"the {name} CUDA kernel cannot be built")
+    raise RuntimeError(f"{tool} not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
 def source(name: str) -> Path:
     return CSRC / f"{name}.cu"
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def inputs(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every local header it includes, in the order
+    first met (the files whose bytes name the library)."""
+    seen, todo = [], [source(name)]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / m.decode() for m in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    tag = hashlib.sha256(source(name).read_bytes()).hexdigest()[:16]
+    digest = hashlib.sha256()
+    for path in inputs(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    tag = digest.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
@@ -78,7 +102,7 @@ def build(name: str) -> dict:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([_nvcc(name), *NVCC_FLAGS, "-o", tmp, str(source(name))],
+        proc = subprocess.run([cuda_tool("nvcc"), *NVCC_FLAGS, "-o", tmp, str(source(name))],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}) on {source(name)}:\n"

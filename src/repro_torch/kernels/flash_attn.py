@@ -92,10 +92,42 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _check_tma(tensors: dict) -> None:
+    """TMA's rules for the bf16 kernel's tensor maps: each base pointer
+    16-byte aligned, each byte stride (batch, sequence, head) a multiple of
+    16.  A stride of an axis of size 1 is never used and is not checked."""
+    for tname, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{NAME}: {tname} starts at an address that is not 16-byte "
+                             "aligned, which the bf16 kernel's TMA loads need")
+        bad = [i for i in range(3) if t.shape[i] > 1 and (t.stride(i) * t.element_size()) % 16]
+        if bad:
+            raise ValueError(f"{NAME}: {tname} has byte strides "
+                             f"{[t.stride(i) * t.element_size() for i in bad]} that are not "
+                             "multiples of 16, which the bf16 kernel's TMA loads need")
+
+
+def _strides(t: torch.Tensor):
+    """(batch, sequence, head) element strides, with an axis of size 1 given
+    the packed stride (any value is legal there; TMA wants a multiple of 16
+    bytes)."""
+    out, packed = [], t.shape[3]
+    for i in (2, 1, 0):
+        out.append(t.stride(i) if t.shape[i] > 1 else packed)
+        packed = out[-1] * t.shape[i]
+    return out[::-1]
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int = 0,
                          scale: float = 1.0) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream; raises on bad input."""
+    """Launch a CUDA kernel on the current stream; raises on bad input.
+
+    The input type alone picks the kernel: bf16 runs the wgmma + TMA kernel
+    (every bf16 shape this wrapper accepts; its pointers and strides must
+    meet TMA's 16-byte rules, else ``ValueError``), f32 the CUDA-core
+    kernel.  Neither falls back to the other.
+    """
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"{NAME}: q {tuple(q.shape)} must be (B, Sq, H, Dh) and k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} one (B, Skv, Hkv, Dh)")
@@ -107,10 +139,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if dh > 128 or dh % 8:
         raise ValueError(f"{NAME}: head size {dh} unsupported (a multiple of 8, <= 128)")
     build.check_strided_inputs(NAME, {"q": q, "k": k, "v": v}, DTYPES)
+    if q.dtype == torch.bfloat16:
+        _check_tma({"q": q, "k": k, "v": v})
     if max(sq, skv) > build.INT32_MAX - 128 or b > 65535 or h > 65535:
         raise ValueError(f"{NAME}: sizes {tuple(q.shape)}, {tuple(k.shape)} out of range")
     out = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_int64 * 9)(*(t.stride(i) for t in (q, k, v) for i in range(3)))
+    strides = (ctypes.c_int64 * 9)(*(st for t in (q, k, v) for st in _strides(t)))
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

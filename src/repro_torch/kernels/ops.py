@@ -78,7 +78,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, Skv, Hkv, Dh) with H a multiple of Hkv -> (B, Sq, H, Dh) in q's type.
 
     The kernel reads the model's layout: no kv-head repeat, no head fold,
-    no padding.  f32 or bf16; Dh a multiple of 8 up to 128.
+    no padding.  f32 or bf16; Dh a multiple of 8 up to 128.  On the card
+    the type alone picks the kernel: bf16 runs the wgmma + TMA kernel
+    (16-byte-aligned pointers and strides, else ``ValueError``), f32 the
+    CUDA-core kernel.
     """
     def plain(q, k, v):
         return _fa.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
@@ -93,6 +96,9 @@ def rwkv_time_mix(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   logw: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Chunked RWKV-6 time-mix from a zero state; r/k/v/logw (B, S, H, 64),
     u (H, 64) -> (B, S, H, 64) in r's type.  The final state is not returned.
+
+    On the card one call launches the kernel's two passes (intra-chunk
+    terms, then the state carry) and counts one launch.
     """
     return _route(rwkv_time_mix, _rw.rwkv_time_mix_ref, _rw.rwkv_time_mix_cuda, r,
                   r, k, v, logw, u)

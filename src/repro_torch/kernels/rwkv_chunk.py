@@ -101,14 +101,16 @@ def rwkv_time_mix_ref(r, k, v, logw, u) -> torch.Tensor:
 def _library() -> ctypes.CDLL:
     lib = build.library(NAME)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.rwkv_chunk_launch.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci,
+    lib.rwkv_chunk_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
                                       ctypes.POINTER(ctypes.c_int64), ci, vp]
     lib.rwkv_chunk_launch.restype = ci
     return lib
 
 
 def rwkv_time_mix_cuda(r, k, v, logw, u) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream; raises on bad input."""
+    """Launch the CUDA kernel's two passes on the current stream (intra-chunk
+    terms into an f32 scratch of the output's shape, then the state carry);
+    raises on bad input."""
     if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, logw)):
         raise ValueError(f"{NAME}: r, k, v, logw must share one (B, S, H, Dh) shape; got "
                          f"{[tuple(t.shape) for t in (r, k, v, logw)]}")
@@ -121,16 +123,18 @@ def rwkv_time_mix_cuda(r, k, v, logw, u) -> torch.Tensor:
     build.check_strided_inputs(NAME, {"u": u}, {torch.float32})
     if u.device != r.device or not u.is_contiguous():
         raise ValueError(f"{NAME}: u must be contiguous on {r.device}")
-    if s > build.INT32_MAX - CHUNK or b * h > build.INT32_MAX:
+    if s > build.INT32_MAX - CHUNK or b * h > build.INT32_MAX or b > 65535 or h > 65535:
         raise ValueError(f"{NAME}: sizes {tuple(r.shape)} out of range")
     out = torch.empty((b, s, h, dh), dtype=r.dtype, device=r.device)
+    scratch = torch.empty((b, s, h, dh), dtype=torch.float32, device=r.device)
     strides = (ctypes.c_int64 * 12)(*(t.stride(i) for t in (r, k, v, logw)
                                       for i in range(3)))
     lib = _library()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         rc = lib.rwkv_chunk_launch(r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                   logw.data_ptr(), u.data_ptr(), out.data_ptr(), b, s, h,
+                                   logw.data_ptr(), u.data_ptr(), scratch.data_ptr(),
+                                   out.data_ptr(), b, s, h,
                                    strides, DTYPES[r.dtype], stream)
     build.check(NAME, lib, rc)
     return out

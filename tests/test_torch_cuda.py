@@ -300,6 +300,49 @@ def test_flash_attention_kernel_reads_strided_views(cuda):
                        scale=0.125)
 
 
+@pytest.mark.parametrize("shape,causal,window", [
+    ((1, 200, 200, 2, 1, 8), True, 0), ((2, 200, 200, 4, 2, 40), True, 0),
+    ((2, 150, 150, 4, 2, 64), True, 0), ((1, 330, 330, 4, 2, 128), True, 0),
+    ((1, 100, 300, 4, 2, 64), True, 0), ((1, 300, 100, 2, 2, 128), True, 0),
+    ((2, 90, 250, 4, 1, 40), False, 0), ((1, 1000, 1000, 2, 1, 128), True, 256),
+    ((1, 700, 700, 2, 2, 64), False, 256)])
+def test_flash_attention_bf16_kernel_ragged_shapes(cuda, shape, causal, window):
+    """The wgmma kernel at every Dh class (8, 40, 64, 128), Sq not a
+    multiple of its 128-row block, Sq != Skv, windows across tile edges."""
+    q, k, v = _flash_inputs(*shape, dtype=torch.bfloat16, device=cuda, seed=sum(shape) + 1)
+    kw = dict(causal=causal, window=window, scale=shape[-1] ** -0.5)
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_attn_close(got, q, k, v, **kw)
+
+
+def test_flash_attention_bf16_kernel_reads_fused_qkv_view(cuda):
+    """bf16 q, k, v sliced out of one fused (B, S, H + 2 Hkv, Dh) projection:
+    the tensor maps take the view's strides, no copy."""
+    qkv = torch.randn(2, 300, 16, 128, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:12], qkv[:, :, 12:]
+    assert not q.is_contiguous()
+    got = fa.flash_attention_cuda(q, k, v, causal=True, scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    _assert_attn_close(got, q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+                       scale=128 ** -0.5)
+
+
+def test_flash_attention_bf16_kernel_refuses_what_tma_cannot_load(cuda):
+    flat = torch.randn(1 + 64 * 4 * 32, device=cuda).to(torch.bfloat16)
+    q = flat[1:].view(1, 64, 4, 32)                     # storage offset of 1 element
+    k = v = torch.randn(1, 64, 4, 32, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_cuda(q, k, v)
+    wide = torch.randn(1, 64, 4, 36, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        fa.flash_attention_cuda(wide[..., :32], k, v)   # head stride of 72 bytes
+    before = ops.flash_attention.launches
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, v)
+    assert ops.flash_attention.launches == before
+
+
 def _rwkv_inputs(b, s, h, dtype, device, seed, strong=False):
     gen = torch.Generator(device=device).manual_seed(seed)
     r, k, v = (torch.randn(b, s, h, 64, generator=gen, device=device) for _ in range(3))
@@ -316,6 +359,24 @@ def _rwkv_inputs(b, s, h, dtype, device, seed, strong=False):
                                           (2, 300, 4, True), (1, 1000, 2, False)])
 def test_rwkv_kernel_matches_plain(cuda, b, s, h, strong, dtype):
     r, k, v, logw, u = _rwkv_inputs(b, s, h, dtype, cuda, seed=s + h, strong=strong)
+    got = rc.rwkv_time_mix_cuda(r, k, v, logw, u)
+    torch.cuda.synchronize()
+    want = rc.rwkv_time_mix_ref(r, k, v, logw, u)
+    assert got.shape == want.shape and got.dtype == dtype
+    assert bool(torch.isfinite(got).all())
+    tol = F32_RTOL * want.float().abs().max() + 1e-6
+    if dtype == torch.bfloat16:
+        tol = tol + BF16_ULPS * _bf16_ulp(want)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= tol).all()), float((err / tol).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h", [(1, 2085, 64), (3, 1500, 48), (2, 4133, 8)])
+def test_rwkv_kernel_many_chunks(cuda, b, s, h, dtype):
+    """Many chunks and a ragged tail, with B * H below (64, 16) and above
+    (144) the card's 132 SMs: pass B's grid is (B * H, 4)."""
+    r, k, v, logw, u = _rwkv_inputs(b, s, h, dtype, cuda, seed=b + s + h)
     got = rc.rwkv_time_mix_cuda(r, k, v, logw, u)
     torch.cuda.synchronize()
     want = rc.rwkv_time_mix_ref(r, k, v, logw, u)
