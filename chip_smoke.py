@@ -16,7 +16,12 @@ Phases (each one fails the run with a non-zero exit; nothing is swallowed):
    main paths' shapes (round 0 of the quickstart at full width for the KL
    and segment kernels), at ragged shapes and at degenerate segmentations,
    and time the kernel, the plain version and, where one exists, one
-   PyTorch library call beside the kernel's bound;
+   PyTorch library call beside the kernel's bound; for the KL kernel also
+   its device time and device launches per call (``torch.profiler``); for
+   the keyed segment encoder (``ops.segment_mrc_encode``) also logW
+   bit-identical to the u-fed kernel fed ``prng``'s draw, the near-tie
+   count of its indices, and its time against the unfused route it
+   replaced, with the keyed (integer operations) and u-fed (bytes) bounds;
 4. drive the three main paths -- the quickstart's BiCompFL-GR at full width
    (MLP 100->256->10, d = 28160, 10 clients, 64 candidates) under
    ``FixedAllocation(128)``, ``AdaptiveAllocation(n_is=64)`` and
@@ -27,7 +32,9 @@ Phases (each one fails the run with a non-zero exit; nothing is swallowed):
    on the same inputs (the CPU routes are tied to the JAX reference by the
    CPU tests);
 6. profile steady rounds of each path with ``torch.profiler``: device time
-   by kernel, and the device's idle share of an unprofiled steady round;
+   by kernel, kernels per round, and the device's idle share of an
+   unprofiled steady round; the adaptive path also on the unfused segment
+   route (``seg_logw_fn=ops.segment_logw``), as the before to its after;
 7. hold the model substrate's kernels (``ops.flash_attention``,
    ``ops.rwkv_time_mix``) against their plain versions at the serving
    path's full-width shapes -- attention of Qwen3-1.7B at (2, 4096, 16 heads,
@@ -80,6 +87,7 @@ from repro_torch.fl.channels import TAG_TRAIN  # noqa: E402
 from repro_torch.fl.engine import FLEngine, _kl_stats  # noqa: E402
 from repro_torch.kernels import bernoulli_kl, build, mrc_weights, ops  # noqa: E402
 from repro_torch.kernels import flash_attn, rwkv_chunk  # noqa: E402
+from repro_torch.kernels import segment_logw as seg_kernel  # noqa: E402
 from repro_torch.kernels.segment_logw import segment_logw_ref  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.launch.serve import Request, Server  # noqa: E402
@@ -101,6 +109,10 @@ SUM_RTOL, SUM_ATOL = 1e-5, 1e-6
 # The card's and the CPU's transcendental functions round differently, so
 # a Gumbel-max near-tie may flip an index; everything else must agree.
 MIN_INDEX_MATCH = 0.99
+# The keyed encoder vs its plain version on the card: an index may differ
+# only where the plain route's top-2 gap of logW + gumbel is below this
+# (the segment sums run in another order).
+NEAR_TIE = 1e-4
 # Attention and the RWKV mix, kernel vs plain version: the same f32 terms
 # summed in another order, held within 1e-5 x the magnitude of the terms
 # (softmax-weighted |v|; |o|'s largest entry), plus, for a bf16 output, one
@@ -117,7 +129,14 @@ PREFILL_BATCH, PREFILL_SEQ = 2, 4096
 PROFILED_STEPS = 8
 MODELS = {"qwen3-1.7b": "flash_attention", "rwkv6-1.6b": "rwkv_time_mix"}
 KERNELS = ("mrc_logw", "bernoulli_kl", "bernoulli_kl_total", "bernoulli_kl_profile",
-           "segment_logw", "flash_attention", "rwkv_time_mix")
+           "segment_logw", "segment_mrc_encode", "segment_select", "flash_attention",
+           "rwkv_time_mix")
+# Integer instructions of one threefry draw in the keyed segment encoder, by
+# count of csrc/common.cuh's code: 20 rounds of add, funnel-shift rotate
+# and xor (60), 5 key injections of two adds (10), the counter add (1),
+# and xor, shift and or of the float conversion (3).
+THREEFRY_INT_OPS = 74
+INT32_LANES_PER_SM, SMS = 64, 132   # H100 SXM: INT32 units per SM, SMs
 # Device function names of each model kernel (bf16 and f32 flash; RWKV's two passes).
 KERNEL_SYMBOLS = {"flash_attention": ("flash_attn_wgmma", "flash_attn_kernel"),
                   "rwkv_time_mix": ("rwkv_intra", "rwkv_inter")}
@@ -201,6 +220,16 @@ def device_profile(fn, per: int = 1):
               if e.device_type == torch.autograd.DeviceType.CUDA
               and e.self_device_time_total > 0]
     return sum(e.self_device_time_total for e in events) / 1e3 / per, events
+
+
+def device_per_call(fn, calls: int = 50):
+    """(device ms per call, device kernels per call) of ``fn`` from
+    ``torch.profiler`` over ``calls`` back-to-back calls; (0, 0) when the
+    profiler saw no device time."""
+    fn()
+    torch.cuda.synchronize()
+    busy, events = device_profile(lambda: [fn() for _ in range(calls)], calls)
+    return busy, sum(e.count for e in events) / calls
 
 
 def timed_row(name, shape, err, kernel, plain, library, nbytes, flops,
@@ -307,6 +336,14 @@ def check_bernoulli_kl(payload, priors):
     rows["total"] = timed_row(
         "bernoulli_kl_total", (n, d), err, lambda: ops.bernoulli_kl_total(payload, p),
         lambda: bernoulli_kl.total_ref(payload, p), None, 4 * (2 * n * d + 1), 14 * n * d)
+    for form, fn in (("profile", ops.bernoulli_kl_profile), ("total", ops.bernoulli_kl_total)):
+        dev_ms, per_call = device_per_call(lambda: fn(payload, p))
+        rows[form].update(device_ms=dev_ms, device_kernels_per_call=per_call)
+        log(f"bernoulli_kl_{form} (10, 28160): device {dev_ms:.4f} ms and {per_call:.2f} "
+            f"device kernels per call (torch.profiler, 50 calls); through ops "
+            f"{rows[form]['ms']:.4f} ms (CUDA events, 50 back-to-back calls)")
+        if dev_ms and per_call != 1:
+            raise AssertionError(f"bernoulli_kl_{form}: {per_call} device launches per call")
     gen = torch.Generator(device="cuda").manual_seed(5)
     for shape in [(7, 3001), (3, 5), (1, 1), (4, 2048), (2200, 128), (1, 300000)]:
         q = torch.rand(shape, generator=gen, device="cuda")
@@ -321,6 +358,10 @@ def check_bernoulli_kl(payload, priors):
                 assert_close_sums(f"bernoulli_kl_profile {shape}",
                                   launched_once(ops.bernoulli_kl_profile, q, pp),
                                   bernoulli_kl.profile_ref(q, pp), sc.sum(0) / shape[0])]
+        again = (ops.bernoulli_kl(q, pp), ops.bernoulli_kl_total(q, pp))   # tickets reset
+        if not (torch.equal(again[0], ops.bernoulli_kl(q, pp))
+                and torch.equal(again[1], ops.bernoulli_kl_total(q, pp))):
+            raise AssertionError(f"bernoulli_kl {shape}: two calls differ")
         log(f"bernoulli_kl {shape}: rows/total/profile max|err| "
             + " / ".join(f"{e:.3e}" for e in errs))
     return rows
@@ -329,7 +370,7 @@ def check_bernoulli_kl(payload, priors):
 def segment_inputs(payload, priors, kt, n_is):
     """The main path's segment_logw call of a round: shared candidates
     (n_is, d), clipped priors and log-ratio coefficients (10, d)."""
-    u = mrc._segment_candidates(kt, n_is, payload.shape[1])
+    u = seg_kernel.segment_candidates(kt, n_is, payload.shape[1])
     a, b = log_ratio_coeffs(clip01(payload), priors)
     return u, clip01(priors).contiguous(), a.contiguous(), b.contiguous()
 
@@ -372,6 +413,101 @@ def check_segment_logw(payload, priors, kt, seg, n_seg):
         sg -= sg[0]
         check_segment_case(f"ragged {cl} clients", uu, pp, aa.contiguous(),
                            bb.contiguous(), sg, int(sg[-1]) + 1)
+    return row
+
+
+def check_encode_case(label, key, sels, pc, a, b, seg, n_seg, n_is=64):
+    """The keyed kernel through ``ops.segment_mrc_encode``: logW bit-identical
+    to the u-fed kernel fed prng's draw of the same key, logW within the
+    sums' bound of the plain version, indices equal to the plain version's
+    but at near-ties (counted, each below NEAR_TIE), the sample exact where
+    the indices agree, and the select pass alone (the decoder) equal to the
+    sample.  Returns (max |err| of logW, near-tie mismatches)."""
+    seg_t = torch.as_tensor(seg, dtype=torch.int32, device="cuda")
+    seg_l = seg_t.long()
+    d = pc.shape[-1]
+    idx, sample, logw = launched_once(ops.segment_mrc_encode, key, sels, pc, a, b, seg_t,
+                                      n_is, n_seg)
+    fed = seg_kernel.segment_logw_cuda(seg_kernel.segment_candidates(key, n_is, d), pc, a, b,
+                                       seg_t, n_seg)
+    if not torch.equal(logw, fed):
+        raise AssertionError(f"segment_mrc_encode {label}: keyed and u-fed logW differ "
+                             f"(max |diff| {(logw - fed).abs().max().item()})")
+    w_idx, w_sample, w_logw = seg_kernel.segment_mrc_encode_ref(key, sels, pc, a, b, seg_l,
+                                                                n_is, n_seg)
+    mag = segment_logw_ref(torch.zeros(n_is, d, device="cuda"), torch.ones_like(pc), a.abs(),
+                           b.abs(), seg_l, n_seg)
+    err = assert_close_sums(f"segment_mrc_encode logW {label}", logw, w_logw, mag)
+    gu = prng.uniform(sels, (n_is, n_seg))
+    score = torch.sort(w_logw - torch.log(-torch.log(torch.clamp(gu, 1e-12, 1 - 1e-12))),
+                       dim=-2).values
+    gap = score[:, -1] - score[:, -2] if n_is > 1 else torch.full_like(score[:, 0], np.inf)
+    diff = idx != w_idx
+    worst = float(gap[diff].max()) if bool(diff.any()) else 0.0
+    if worst >= NEAR_TIE:
+        raise AssertionError(f"segment_mrc_encode {label}: index differs where the top-2 "
+                             f"gap is {worst}")
+    keep = ~diff[:, seg_l]
+    dec = launched_once(ops.segment_select, key, idx, pc, seg_t)
+    if not torch.equal(sample[keep], w_sample[keep]) or not torch.equal(dec, sample):
+        raise AssertionError(f"segment_mrc_encode {label}: sample differs from the plain "
+                             "route's or from the select pass's")
+    log(f"segment_mrc_encode {label}: ({pc.shape[0]}, {n_is}, {d}, {n_seg}): logW "
+        f"bit-identical to the u-fed kernel; max|err| vs plain {err:.3e}; near-tie index "
+        f"mismatches {int(diff.sum())} of {diff.numel()} (largest top-2 gap among them "
+        f"{worst:.3e}, bound {NEAR_TIE}); sample exact where the indices agree")
+    return err, int(diff.sum())
+
+
+def check_segment_encode(payload, priors, kt, seg, n_seg, int_rate, fed_row):
+    """The keyed kernel at the main path's call of a round (10 clients,
+    n_is = 64, the round-0 plan), at degenerate segmentations and ragged
+    shapes; timed against its plain version and against the unfused route
+    it replaced (prng draw, u-fed kernel, Gumbel draw, logs, argmax, gather),
+    with the keyed bound (threefry's integer operations) and the u-fed one."""
+    n, d = payload.shape
+    pc = clip01(priors).contiguous()
+    a, b = (t.contiguous() for t in log_ratio_coeffs(clip01(payload), priors))
+    sels = prng.split(prng.fold_in(kt, 7), n)
+    err, ties = check_encode_case("main path", kt, sels, pc, a, b, seg, n_seg)
+    check_encode_case("one segment", kt, sels, pc, a, b, np.zeros(d, np.int32), 1)
+    check_encode_case("all singletons", kt, sels[:2], pc[:2], a[:2], b[:2],
+                      np.arange(d, dtype=np.int32), d)
+    check_encode_case("empty tail", kt, sels, pc, a, b, seg, n_seg + 5)
+    rng = np.random.default_rng(4)
+    for cl, nis, d2 in [(3, 33, 1001), (1, 1, 7), (17, 40, 3000)]:
+        gen = torch.Generator(device="cuda").manual_seed(d2)
+        qq, pp = (torch.rand(cl, d2, generator=gen, device="cuda") for _ in range(2))
+        aa, bb = (t.contiguous() for t in log_ratio_coeffs(qq, pp))
+        sg = np.sort(rng.integers(0, max(d2 // 5, 1), d2)).astype(np.int32)
+        sg -= sg[0]
+        check_encode_case(f"ragged {cl} clients", kt, prng.split(kt, cl), clip01(pp),
+                          aa, bb, sg, int(sg[-1]) + 1, n_is=nis)
+
+    seg_t = torch.as_tensor(seg, dtype=torch.int32, device="cuda")
+    seg_l = seg_t.long()
+    kernel = lambda: ops.segment_mrc_encode(kt, sels, pc, a, b, seg_t, 64, n_seg)  # noqa: E731
+    plain = lambda: seg_kernel.segment_mrc_encode_ref(  # noqa: E731
+        kt, sels, pc, a, b, seg_l, 64, n_seg)
+    unfused = lambda: seg_kernel.segment_mrc_encode_ref(  # noqa: E731
+        kt, sels, pc, a, b, seg_t, 64, n_seg, seg_logw_fn=ops.segment_logw)
+    draws = 64 * d + n * 64 * n_seg
+    nbytes = 4 * (3 * n * d + d + n * d + n * 64 * n_seg) + 8 * (n * n_seg + 2 + 2 * n)
+    row = timed_row("segment_mrc_encode", (n, 64, d, n_seg), err, kernel, plain, None,
+                    nbytes, draws * THREEFRY_INT_OPS, int_rate)
+    row["unfused_ms"] = cuda_time_ms(unfused)
+    row["device_ms"], row["device_kernels_per_call"] = device_per_call(kernel, 20)
+    row["unfused_device_ms"], row["unfused_kernels_per_call"] = device_per_call(unfused, 5)
+    row.update(near_tie_mismatches=ties, threefry_draws=draws,
+               int32_ops_per_s=int_rate, u_fed_bound_ms=fed_row["bound_ms"])
+    log(f"segment_mrc_encode vs the unfused route it replaced (prng draw of u, u-fed "
+        f"segment_logw, Gumbel draw, logs, argmax, gather): kernel {row['ms']:.4f} ms "
+        f"(device {row['device_ms']:.4f} ms in {row['device_kernels_per_call']:.1f} kernels "
+        f"per call) vs unfused {row['unfused_ms']:.4f} ms (device "
+        f"{row['unfused_device_ms']:.4f} ms in {row['unfused_kernels_per_call']:.1f} kernels "
+        f"per call); keyed bound {row['bound_ms']:.4f} ms ({row['bound_by']}: {draws} draws x "
+        f"{THREEFRY_INT_OPS} INT32 ops at {int_rate:.3e}/s), u-fed bound "
+        f"{fed_row['bound_ms']:.4f} ms ({fed_row['bound_by']})")
     return row
 
 
@@ -429,7 +565,7 @@ def check_path(name, launches, plans, out):
         expect["mrc_logw"] = ROUNDS
         plans = [(c["block_size"], -(-d // c["block_size"]), None, 0.0)] * ROUNDS
     elif name == "adaptive":
-        expect["segment_logw"] = expect["bernoulli_kl_profile"] = ROUNDS
+        expect["segment_mrc_encode"] = expect["bernoulli_kl_profile"] = ROUNDS
     else:
         expect["mrc_logw"] = expect["bernoulli_kl_total"] = ROUNDS
     if d != 28160:
@@ -452,8 +588,6 @@ def check_path(name, launches, plans, out):
             or float(theta.min()) < 0 or float(theta.max()) > 1:
         raise AssertionError(f"path {name}: non-finite accuracy or theta outside [0, 1]")
     log(f"  booked bits per round: {[round(b - a, 1) for a, b in zip([0.0] + cum, cum)]}")
-    ph = out["phase_seconds"]
-    return sum(sum(v[1:]) for v in ph.values()) / (ROUNDS - 1)
 
 
 # ---------------------------------------------------------------------------
@@ -526,27 +660,37 @@ def phase_codec_vs_cpu(payload, priors, kt):
 # ---------------------------------------------------------------------------
 
 
-def phase_profile(name, steady_round_s: float, rounds: int):
+def phase_profile(name, rounds: int, unfused: bool = False):
     """Device time by kernel over ``rounds`` rounds of one path, and the
-    device's idle share of an unprofiled steady round (the profiler slows
-    the host many-fold)."""
+    device's idle share of an unprofiled steady round (the mean of rounds
+    2-ROUNDS of an unprofiled run; the profiler slows the host many-fold).
+    ``unfused``: the adaptive uplink takes the route the keyed kernel
+    replaced (``seg_logw_fn=ops.segment_logw``), for the before/after."""
     task, spec, shards = quickstart.build("cuda", dict(quickstart.CONFIG, allocation=name))
+    if unfused:
+        spec.uplink.seg_logw_fn = ops.segment_logw_fn()
+        name = f"{name} (unfused segment route)"
     engine = FLEngine(task, spec)
     engine.run(shards, rounds=1)  # warm-up outside the window
+    ph = engine.run(shards, rounds=ROUNDS)["phase_seconds"]
+    torch.cuda.synchronize()
+    steady_ms = 1e3 * sum(sum(v[1:]) for v in ph.values()) / (ROUNDS - 1)
     busy_ms, kernels = device_profile(lambda: engine.run(shards, rounds=rounds), rounds)
     if busy_ms == 0:
         log(f"profile {name}: the profiler saw no device time (device busy: not measured)")
-        return
-    log(f"profile {name}: device busy {busy_ms:.3f} ms per round in "
-        f"{sum(e.count for e in kernels) // rounds} kernels; steady round "
-        f"{1e3 * steady_round_s:.3f} ms unprofiled -> device idle share "
-        f"{1 - busy_ms / (1e3 * steady_round_s):.4f}")
+        return None
+    per_round = sum(e.count for e in kernels) // rounds
+    log(f"profile {name}: device busy {busy_ms:.3f} ms per round in {per_round} kernels; "
+        f"steady round {steady_ms:.3f} ms unprofiled -> device idle share "
+        f"{1 - busy_ms / steady_ms:.4f}")
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
-    own = ("mrc_logw_kernel", "kl_rows_pass", "kl_cols", "seg_pass")
+    own = ("mrc_logw_kernel", "kl_rows", "kl_cols", "seg_pass", "seg_select")
     for i, e in enumerate(ranked):
         if i < 10 or any(k in e.key for k in own):
             log(f"  {e.self_device_time_total / rounds / 1e3:8.3f} ms/round  "
                 f"x{e.count // rounds:<5d} {e.key[:100]}")
+    return {"device_busy_ms": busy_ms, "kernels_per_round": per_round,
+            "steady_round_ms": steady_ms, "idle_share": 1 - busy_ms / steady_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -813,6 +957,12 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     log(f"card: {smi}")
+    sm_mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                   "--format=csv,noheader,nounits"], capture_output=True,
+                                  text=True, check=True).stdout.split()[0])
+    int_rate = SMS * INT32_LANES_PER_SM * sm_mhz * 1e6
+    log(f"max SM clock {sm_mhz:.0f} MHz: {int_rate:.3e} INT32 operations/s on "
+        f"{SMS} SMs x {INT32_LANES_PER_SM} lanes")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
@@ -842,12 +992,13 @@ def main() -> int:
     profile = bernoulli_kl.profile_ref(payload, clip01(priors)).cpu().numpy()
     _, n_seg, seg, _ = AdaptiveAllocation(n_is=64).plan(profile, payload.shape[1])
     seg_row = check_segment_logw(payload, priors, kt, seg, n_seg)
+    enc_row = check_segment_encode(payload, priors, kt, seg, n_seg, int_rate, seg_row)
 
     # Phase 4.
-    runs, steady = {}, {}
+    runs = {}
     for name in PATHS:
         runs[name] = run_path(name)
-        steady[name] = check_path(name, *runs[name])
+        check_path(name, *runs[name])
     avg_sizes = sorted({pl[0] for pl in runs["adaptive-avg"][1]})
     n = quickstart.CONFIG["n_clients"]
     avg_rows = [check_mrc_logw((n * (-(-28160 // s)), 64, s), seed=10 + s) for s in avg_sizes]
@@ -856,9 +1007,10 @@ def main() -> int:
     phase_codec_vs_cpu(payload, priors, kt)
 
     # Phase 6.
-    phase_profile("fixed", steady["fixed"], 2)
-    phase_profile("adaptive", steady["adaptive"], 1)
-    phase_profile("adaptive-avg", steady["adaptive-avg"], 1)
+    profiles = {"fixed": phase_profile("fixed", 2),
+                "adaptive": phase_profile("adaptive", 1),
+                "adaptive (unfused segment route)": phase_profile("adaptive", 1, unfused=True),
+                "adaptive-avg": phase_profile("adaptive-avg", 1)}
 
     t_fl = time.perf_counter()
     # Phase 7.
@@ -885,24 +1037,30 @@ def main() -> int:
                 **{f"{arch} serve": served[arch][name] for arch in MODELS}}
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    rows = [("mrc_logw", "src/repro/kernels/mrc_weights.py:71", main_row,
+    rows = [("mrc_logw", "mrc_logw", "src/repro/kernels/mrc_weights.py:71", main_row,
              by_path("mrc_logw"), {"adaptive_avg_shapes": avg_rows}),
-            ("bernoulli_kl", "src/repro/kernels/bernoulli_kl.py:46", kl_rows["profile"],
+            ("bernoulli_kl", "bernoulli_kl", "src/repro/kernels/bernoulli_kl.py:46",
+             kl_rows["profile"],
              by_path("bernoulli_kl", "bernoulli_kl_total", "bernoulli_kl_profile"),
              {"profile": kl_rows["profile"], "total": kl_rows["total"]}),
-            ("segment_logw", "src/repro/kernels/segment_logw.py:92", seg_row,
-             by_path("segment_logw"), {"shape": seg_row["shape"]}),
-            ("flash_attn", "src/repro/kernels/flash_attn.py:95", model_rows["flash_bf16"],
-             by_model("flash_attention"),
+            ("segment_logw", "segment_logw", "src/repro/kernels/segment_logw.py:92", seg_row,
+             by_path("segment_logw"), {"shape": seg_row["shape"], "form": "u-fed"}),
+            ("segment_mrc_encode", "segment_logw", "src/repro/kernels/segment_logw.py:92",
+             enc_row, by_path("segment_mrc_encode"),
+             {"form": "keyed", **{k: v for k, v in enc_row.items() if k not in keys}}),
+            ("flash_attn", "flash_attn", "src/repro/kernels/flash_attn.py:95",
+             model_rows["flash_bf16"], by_model("flash_attention"),
              {"shape": model_rows["flash_bf16"]["shape"], "dtype": "bfloat16",
               "f32": model_rows["flash_f32"], "hgmma_in_sass": hgmma}),
-            ("rwkv_chunk", "src/repro/kernels/rwkv_chunk.py:90", model_rows["rwkv"],
-             by_model("rwkv_time_mix"), {"shape": model_rows["rwkv"]["shape"]})]
+            ("rwkv_chunk", "rwkv_chunk", "src/repro/kernels/rwkv_chunk.py:90",
+             model_rows["rwkv"], by_model("rwkv_time_mix"),
+             {"shape": model_rows["rwkv"]["shape"]})]
     kernels = [{"name": name, "route": "cuda",
-                "source": f"src/repro_torch/kernels/csrc/{name}.cu", "replaces": replaces,
+                "source": f"src/repro_torch/kernels/csrc/{src}.cu", "replaces": replaces,
                 "launches": sum(per_path.values()), "launches_by_path": per_path,
                 **{k: row[k] for k in keys}, **extra}
-               for name, replaces, row, per_path, extra in rows]
+               for name, src, replaces, row, per_path, extra in rows]
+    log(f"FL profiles: {json.dumps(profiles)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

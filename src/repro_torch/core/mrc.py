@@ -31,7 +31,7 @@ import torch
 from repro_torch import prng
 from repro_torch.kernels import ops
 from repro_torch.kernels.mrc_weights import mrc_logw_ref
-from repro_torch.kernels.segment_logw import segment_logw_ref
+from repro_torch.kernels.segment_logw import segment_logw_ref, segment_mrc_encode_ref
 
 from .bernoulli import clip01, log_ratio_coeffs
 
@@ -173,19 +173,14 @@ def receive_fixed(shared_key: torch.Tensor, indices: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _segment_candidates(shared_key: torch.Tensor, n_is: int, d: int) -> torch.Tensor:
-    """Candidate uniforms ``(K..., n_is, d)``: row r is ``uniform(fold_in(key, r), (d,))``."""
-    rows = torch.arange(n_is, dtype=torch.int64, device=shared_key.device)
-    return prng.uniform(prng.fold_in(shared_key[..., None, :], rows), (d,))
-
-
 SegLogWFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                       torch.Tensor, int], torch.Tensor]
 # signature: (u: (n_is, d) uniforms shared by the clients, p: (C, d) clipped prior,
 #             a: (C, d), b: (C, d), seg_ids: (d,), n_seg) -> (C, n_is, n_seg)
 
 # Plain segment log-weights, the reference's jnp default (``where`` and a
-# segment sum); ``encode_segments`` routes through ``kernels.ops.segment_logw``.
+# segment sum).  Without a ``seg_logw_fn``, ``encode_segments`` runs the
+# whole encoder through ``kernels.ops.segment_mrc_encode``.
 default_segment_logw = segment_logw_ref
 
 
@@ -220,20 +215,19 @@ def _encode_segments(shared_key, select_key, q, p, seg, *, n_is, n_seg,
                      seg_logw_fn) -> MRCResult:
     if shared_key.dim() != 1:
         raise ValueError(f"shared_key must be one key (2,), got {tuple(shared_key.shape)}")
-    logw_impl = seg_logw_fn if seg_logw_fn is not None else ops.segment_logw
-    lead, d = q.shape[:-1], q.shape[-1]
-    pc = clip01(p)
-    u = _segment_candidates(shared_key, n_is, d)                   # (n_is, d)
     a, b = log_ratio_coeffs(q, p)                                  # (N..., d)
-    logw = logw_impl(u.contiguous(), pc.reshape(-1, d).contiguous(),
-                     a.reshape(-1, d).contiguous(), b.reshape(-1, d).contiguous(),
-                     seg, n_seg).reshape(lead + (n_is, n_seg))
-    gu = prng.uniform(select_key, (n_is, n_seg))                   # (N..., n_is, n_seg)
-    gumbel = -torch.log(-torch.log(torch.clamp(gu, 1e-12, 1.0 - 1e-12)))
-    idx = torch.argmax(logw + gumbel, dim=-2)                      # (N..., n_seg)
-    rows = idx[..., seg.to(torch.int64)]                           # (N..., d)
-    u_sel = u[rows, torch.arange(d, device=u.device)]             # (N..., d)
-    return MRCResult(indices=idx, sample=(u_sel < pc).to(torch.float32))
+    lead, d = a.shape[:-1], a.shape[-1]
+
+    def flat(t, width):  # (N..., width) -> (C, width), what the kernel takes
+        return t.expand(lead + (width,)).reshape(-1, width).contiguous()
+
+    args = (shared_key, flat(select_key, 2), flat(clip01(p), d), flat(a, d), flat(b, d),
+            seg, n_is, n_seg)
+    if seg_logw_fn is None:
+        idx, sample, _ = ops.segment_mrc_encode(*args)
+    else:
+        idx, sample, _ = segment_mrc_encode_ref(*args, seg_logw_fn=seg_logw_fn)
+    return MRCResult(indices=idx.reshape(lead + (n_seg,)), sample=sample.reshape(lead + (d,)))
 
 
 def encode_segments(shared_key: torch.Tensor, select_key: torch.Tensor,
@@ -250,8 +244,11 @@ def encode_segments(shared_key: torch.Tensor, select_key: torch.Tensor,
     logW(i, s) = sum_{e in s} x_ie a_e + sum_{e in s} b_e, with the
     candidate term a fused compare+select ``where(u < p, a, 0)``; the
     selected sample is re-thresholded from the chosen candidate row only.
-    ``seg_logw_fn`` defaults to ``kernels.ops.segment_logw``: the CUDA
-    kernel for tensors on the card, the plain version on the CPU.
+    Without ``seg_logw_fn`` the whole encoder is ``kernels.ops
+    .segment_mrc_encode``: on the card one kernel that draws the candidates
+    in place, on the CPU the plain version.  A ``seg_logw_fn`` (e.g.
+    ``kernels.ops.segment_logw_fn()``) takes the unfused route, with the
+    candidates drawn into an ``(n_is, d)`` tensor and weighed by it.
     """
     seg = _seg_tensor(seg_ids, q.device)
     return _encode_segments(shared_key, select_key, q, p, seg, n_is=n_is,
@@ -259,12 +256,11 @@ def encode_segments(shared_key: torch.Tensor, select_key: torch.Tensor,
 
 
 def _decode_segments(shared_key, indices, p, seg) -> torch.Tensor:
-    d = p.shape[-1]
-    rows = indices.to(torch.int64)[..., seg.to(torch.int64)]      # (N..., d)
-    keys = prng.fold_in(shared_key[..., None, :], rows)            # (N..., d, 2)
-    cols = torch.arange(d, dtype=torch.int64, device=p.device)
-    u_sel = prng.uniform_at(keys, cols, ndim=0)
-    return (u_sel < clip01(p)).to(torch.float32)
+    pc = clip01(p)
+    lead = torch.broadcast_shapes(indices.shape[:-1], pc.shape[:-1])
+    idx = indices.to(torch.int64).expand(lead + indices.shape[-1:]).contiguous()
+    return ops.segment_select(shared_key, idx, pc.expand(lead + pc.shape[-1:]).contiguous(),
+                              seg)
 
 
 def decode_segments(shared_key: torch.Tensor, indices: torch.Tensor,
@@ -272,7 +268,9 @@ def decode_segments(shared_key: torch.Tensor, indices: torch.Tensor,
     """Reconstruct the encoder-selected sample from segment indices: ``(N..., d)``.
 
     Regenerates only the selected candidate row of each parameter (O(d),
-    not O(d * n_is)); ``n_is`` is kept for the reference's signature.
+    not O(d * n_is)), through ``kernels.ops.segment_select`` (the encoder
+    kernel's select pass on the card); ``n_is`` is kept for the
+    reference's signature.
     """
     return _decode_segments(shared_key, indices, p, _seg_tensor(seg_ids, p.device))
 

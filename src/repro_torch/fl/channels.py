@@ -187,14 +187,16 @@ class MRCFixedChannel(StatelessUplink):
 class MRCAdaptiveChannel(StatelessUplink):
     """Uplink MRC over variable-size segments (Isik et al. 2024 allocation).
 
-    GR: every client's candidates come from the common round key, so one
-    ``(n_is, d)`` draw per conveyed sample serves the cohort, and the
-    segment weights of all clients go through one ``ops.segment_logw`` call
-    (one kernel launch on the card).
+    GR: every client's candidates come from the common round key, so the
+    whole cohort's segment encode per conveyed sample is one
+    ``ops.segment_mrc_encode`` call (on the card one kernel, which draws
+    the candidates in place).  A ``seg_logw_fn`` (as in the reference)
+    takes the unfused route instead: one ``(n_is, d)`` draw, weighed by it.
     """
 
     n_is: int = 256
     n_samples: int = 1
+    seg_logw_fn: Any = None
 
     def _transmit(self, ctx, payload, priors):
         """Returns (indices (n_act, n_samples, n_seg), q_hat (n_act, d), bits)."""
@@ -203,7 +205,7 @@ class MRCAdaptiveChannel(StatelessUplink):
         sels = _vfold(prng.fold_in(kt, TAG_UL_SELECT), ctx.active_ids)
         idxs, q_hat = mrc.transmit_segments(
             kt, sels, clip01(payload), clip01(priors), plan.seg_ids, n_is=self.n_is,
-            n_seg=plan.n_blocks, n_samples=self.n_samples)
+            n_seg=plan.n_blocks, n_samples=self.n_samples, seg_logw_fn=self.seg_logw_fn)
         bits = ctx.n_active * self.n_samples * plan.billable * math.log2(self.n_is)
         return idxs, q_hat, bits
 

@@ -128,6 +128,25 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def current_stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current stream.  ``torch.cuda
+    .current_stream`` builds a Stream object, a few microseconds a call; the
+    raw getter (the one Triton's launcher calls) does not."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def launch(device: torch.device, fn, *args) -> int:
+    """Call a library's launch function ``fn(*args, stream)`` with the
+    current stream of ``device``, on that device; returns its CUDA error
+    code.  ``device`` is made the current device only when it is not
+    already (entering ``torch.cuda.device`` costs microseconds a call, and
+    most calls need no switch)."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args, current_stream(device))
+    with torch.cuda.device(device):
+        return fn(*args, current_stream(device))
+
+
 def check(name: str, lib: ctypes.CDLL, rc: int) -> None:
     """Raise if a launch function returned a CUDA error code."""
     if rc != 0:

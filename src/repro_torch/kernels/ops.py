@@ -63,12 +63,41 @@ def segment_logw(u: torch.Tensor, p: torch.Tensor, a: torch.Tensor,
     """Segment MRC log-weights; u (NIS, D), p/a/b (D,) or (C, D), seg_ids
     (D,) non-decreasing from 0 (int32 on the card) -> (..., NIS, n_seg).
 
-    Drop-in ``seg_logw_fn`` for ``repro_torch.core.mrc.encode_segments``
-    (and its default there).  ``u`` is shared by the clients: one launch
-    serves the cohort.
+    Drop-in ``seg_logw_fn`` for ``repro_torch.core.mrc.encode_segments``.
+    ``u`` is shared by the clients: one launch serves the cohort.  The
+    codec's default route is ``segment_mrc_encode``, which draws u in the
+    kernel.
     """
     return _route(segment_logw, _seg.segment_logw_ref, _seg.segment_logw_cuda, u,
                   u, p, a, b, seg_ids, n_seg)
+
+
+def segment_mrc_encode(shared_key: torch.Tensor, select_key: torch.Tensor,
+                       pc: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                       seg_ids: torch.Tensor, n_is: int, n_seg: int):
+    """The segment codec's whole encoder; shared_key (2,), select_key (C, 2)
+    (or (2,) with (D,) coefficients), pc/a/b (C, D), seg_ids (D,) non-decreasing
+    from 0 (int32 on the card) -> (indices (C, n_seg) int64, sample (C, D),
+    logw (C, n_is, n_seg)).
+
+    Candidate row i is ``uniform(fold_in(shared_key, i), (D,))``.  On the
+    card the kernel draws it in place (three device launches, one count):
+    the (n_is, D) uniforms never reach memory.  ``core.mrc.encode_segments``
+    calls it when no ``seg_logw_fn`` is given.
+    """
+    return _route(segment_mrc_encode, _seg.segment_mrc_encode_ref,
+                  _seg.segment_mrc_encode_cuda, pc, shared_key, select_key, pc, a, b,
+                  seg_ids, n_is, n_seg)
+
+
+def segment_select(shared_key: torch.Tensor, indices: torch.Tensor, pc: torch.Tensor,
+                   seg_ids: torch.Tensor) -> torch.Tensor:
+    """The segment decoder: the chosen candidate rows re-thresholded,
+    indices (N..., n_seg) int64 (int32 too on the CPU), pc (N..., D) ->
+    (N..., D); only the chosen rows' elements are drawn.  The card runs the
+    select pass of ``segment_mrc_encode``'s kernel."""
+    return _route(segment_select, _seg.segment_select_ref, _seg.segment_select_cuda, pc,
+                  shared_key, indices, pc, seg_ids)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -105,7 +134,8 @@ def rwkv_time_mix(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 for _fn in (mrc_logw, bernoulli_kl, bernoulli_kl_total, bernoulli_kl_profile,
-            segment_logw, flash_attention, rwkv_time_mix):
+            segment_logw, segment_mrc_encode, segment_select, flash_attention,
+            rwkv_time_mix):
     _fn.launches = 0
 
 

@@ -20,6 +20,7 @@ from repro_torch.core.bernoulli import clip01, log_ratio_coeffs
 from repro_torch.kernels import bernoulli_kl as kl
 from repro_torch.kernels import ops
 from repro_torch.kernels.mrc_weights import mrc_logw_cuda, mrc_logw_ref
+from repro_torch.kernels import segment_logw as sl
 from repro_torch.kernels.segment_logw import segment_logw_cuda, segment_logw_ref
 
 pytestmark = pytest.mark.cuda
@@ -232,6 +233,125 @@ def test_segment_encode_on_card_matches_cpu_route(cuda):
     assert torch.equal(gpu.sample.cpu()[keep], cpu.sample[keep])
     dec = mrc.decode_segments(key.to(cuda), gpu.indices, p.to(cuda), seg, n_is=64)
     assert torch.equal(dec, gpu.sample)
+
+
+# ---------------------------------------------------------------------------
+# The fused segment encoder (keyed form) and the one-launch KL.
+# ---------------------------------------------------------------------------
+
+
+def _encode_inputs(cuda, clients, nis, d, kind, seed):
+    """Keys, clipped priors and coefficients (C, D), int32 ids of one kind."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = 0.05 + 0.9 * torch.rand(clients, d, generator=gen, device=cuda)
+    p = torch.clamp(q + 0.05 * torch.randn(clients, d, generator=gen, device=cuda), 0.05, 0.95)
+    a, b = (t.contiguous() for t in log_ratio_coeffs(q, p))
+    seg, n_seg = _segmentation(kind, d, np.random.default_rng(seed))
+    key = prng.PRNGKey(seed, device=cuda)
+    sels = prng.split(prng.PRNGKey(seed + 1, device=cuda), clients)
+    return key, sels, clip01(p).contiguous(), a, b, torch.as_tensor(seg, device=cuda), n_seg
+
+
+ENCODE_CASES = [(10, 64, 28160, "random"), (10, 64, 28160, "single"),
+                (3, 64, 28160, "singletons"), (3, 33, 1001, "skipping"),
+                (2, 70, 513, "random"), (1, 1, 7, "single"), (17, 40, 3000, "random")]
+
+
+@pytest.mark.parametrize("clients,nis,d,kind", ENCODE_CASES)
+def test_keyed_and_u_fed_kernels_give_identical_logw(cuda, clients, nis, d, kind):
+    """The keyed kernel draws u in place; fed prng's draw of the same key,
+    the u-fed kernel gives bit-identical logW, so the in-kernel threefry is
+    prng's exactly."""
+    key, sels, pc, a, b, seg, n_seg = _encode_inputs(cuda, clients, nis, d, kind, d + nis)
+    _, _, logw = sl.segment_mrc_encode_cuda(key, sels, pc, a, b, seg, nis, n_seg)
+    u = sl.segment_candidates(key, nis, d)
+    fed = segment_logw_cuda(u, pc, a, b, seg, n_seg)
+    torch.cuda.synchronize()
+    assert torch.equal(logw, fed)
+
+
+@pytest.mark.parametrize("clients,nis,d,kind", ENCODE_CASES)
+def test_keyed_encode_matches_plain_on_the_card(cuda, clients, nis, d, kind):
+    """Indices equal the plain route's except at near-ties of logW + gumbel
+    (the segment sums run in another order), counted and bounded; the
+    sample is exact wherever the indices agree; logW within the sums'
+    tolerance."""
+    key, sels, pc, a, b, seg, n_seg = _encode_inputs(cuda, clients, nis, d, kind, d + 7)
+    idx, sample, logw = sl.segment_mrc_encode_cuda(key, sels, pc, a, b, seg, nis, n_seg)
+    w_idx, w_sample, w_logw = sl.segment_mrc_encode_ref(key, sels, pc, a, b, seg.long(), nis,
+                                                        n_seg)
+    mag = segment_logw_ref(torch.zeros(nis, d, device=cuda), torch.ones_like(pc), a.abs(),
+                           b.abs(), seg.long(), n_seg)
+    _assert_sums_close(logw, w_logw, mag)
+    gu = prng.uniform(sels, (nis, n_seg))
+    score = torch.sort(w_logw - torch.log(-torch.log(torch.clamp(gu, 1e-12, 1 - 1e-12))),
+                       dim=1).values
+    gap = (score[:, -1] - score[:, -2]) if nis > 1 else torch.full_like(score[:, 0], 1e9)
+    diff = idx != w_idx
+    print(f"keyed encode {clients}x{nis}x{d} {kind}: {int(diff.sum())} near-tie index "
+          f"mismatches of {diff.numel()}, largest gap among them "
+          f"{float(gap[diff].max()) if diff.any() else 0.0:.3e}")
+    assert bool((gap[diff] < 1e-4).all())
+    keep = ~diff[:, seg.long()]
+    assert torch.equal(sample[keep], w_sample[keep])
+    assert idx.dtype == torch.int64 and sample.dtype == torch.float32
+
+
+def test_select_pass_is_the_decoder(cuda):
+    """Pass 3 alone equals u[rows, arange(d)] < pc for arbitrary indices."""
+    key, _, pc, _, _, seg, n_seg = _encode_inputs(cuda, 4, 64, 28160, "random", 3)
+    idx = torch.randint(0, 64, (4, n_seg), device=cuda)
+    u = sl.segment_candidates(key, 64, 28160)
+    want = (u[idx[:, seg.long()], torch.arange(28160, device=cuda)] < pc).float()
+    before = ops.segment_select.launches
+    got = ops.segment_select(key, idx, pc, seg)
+    torch.cuda.synchronize()
+    assert ops.segment_select.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got, sl.segment_select_ref(key, idx, pc, seg))
+
+
+def test_fused_kernels_are_deterministic(cuda):
+    key, sels, pc, a, b, seg, n_seg = _encode_inputs(cuda, 10, 64, 28160, "random", 4)
+    first = sl.segment_mrc_encode_cuda(key, sels, pc, a, b, seg, 64, n_seg)
+    second = sl.segment_mrc_encode_cuda(key, sels, pc, a, b, seg, 64, n_seg)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    u = sl.segment_candidates(key, 64, 28160)
+    assert torch.equal(segment_logw_cuda(u, pc, a, b, seg, n_seg),
+                       segment_logw_cuda(u, pc, a, b, seg, n_seg))
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, p = (torch.rand(3, 300000, generator=gen, device=cuda) for _ in range(2))
+    runs = [(kl.total_cuda(q, p), kl.rows_cuda(q, p)) for _ in range(3)]  # tickets reset
+    assert all(torch.equal(r[0], runs[0][0]) and torch.equal(r[1], runs[0][1])
+               for r in runs[1:])
+
+
+def test_ops_segment_mrc_encode_counts_one_launch(cuda):
+    key, sels, pc, a, b, seg, n_seg = _encode_inputs(cuda, 2, 8, 600, "random", 5)
+    before, fed = ops.segment_mrc_encode.launches, ops.segment_logw.launches
+    ops.segment_mrc_encode(key, sels, pc, a, b, seg, 8, n_seg)
+    assert ops.segment_mrc_encode.launches == before + 1
+    assert ops.segment_logw.launches == fed
+    res = mrc.encode_segments(key, sels, pc, pc, seg.cpu().numpy(), n_is=8, n_seg=n_seg)
+    assert ops.segment_mrc_encode.launches == before + 2 and ops.segment_logw.launches == fed
+    assert tuple(res.indices.shape) == (2, n_seg)
+
+
+def test_fused_wrappers_refuse_bad_input(cuda):
+    key, sels, pc, a, b, seg, n_seg = _encode_inputs(cuda, 2, 8, 64, "random", 6)
+    with pytest.raises(TypeError):
+        sl.segment_mrc_encode_cuda(key.int(), sels, pc, a, b, seg, 8, n_seg)
+    with pytest.raises(ValueError):
+        sl.segment_mrc_encode_cuda(sels, sels, pc, a, b, seg, 8, n_seg)      # key shape
+    with pytest.raises(ValueError):
+        sl.segment_mrc_encode_cuda(key, sels[:1], pc, a, b, seg, 8, n_seg)  # one key short
+    with pytest.raises(TypeError):
+        sl.segment_mrc_encode_cuda(key, sels, pc, a, b, seg.long(), 8, n_seg)
+    with pytest.raises(ValueError):
+        sl.segment_mrc_encode_cuda(key.cpu(), sels, pc, a, b, seg, 8, n_seg)
+    with pytest.raises(ValueError):
+        sl.segment_select_cuda(key, torch.zeros(2, n_seg, dtype=torch.int32, device=cuda),
+                               pc, seg)
 
 
 # ---------------------------------------------------------------------------

@@ -255,7 +255,7 @@ def test_library_path_covers_included_headers(tmp_path, monkeypatch):
     assert build.library_path("k") not in (first, second)
 
 
-@pytest.mark.parametrize("name", ["flash_attn", "rwkv_chunk"])
+@pytest.mark.parametrize("name", ["flash_attn", "rwkv_chunk", "segment_logw"])
 def test_model_kernels_share_the_common_header(name):
     assert [p.name for p in build.inputs(name)] == [f"{name}.cu", "common.cuh"]
     assert build.library_path(name).name.startswith(f"lib{name}-")
