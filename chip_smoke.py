@@ -22,19 +22,31 @@ Phases (each one fails the run with a non-zero exit; nothing is swallowed):
    bit-identical to the u-fed kernel fed ``prng``'s draw, the near-tie
    count of its indices, and its time against the unfused route it
    replaced, with the keyed (integer operations) and u-fed (bytes) bounds;
+   the same encoder under per-client keys ``(C, 2)`` (the PR variants'
+   private candidates, drawn once per client), logW bit-identical to the
+   u-fed kernel fed ``prng``'s draw of each client's key, timed against
+   its bound;
 4. drive the three main paths -- the quickstart's BiCompFL-GR at full width
    (MLP 100->256->10, d = 28160, 10 clients, 64 candidates) under
    ``FixedAllocation(128)``, ``AdaptiveAllocation(n_is=64)`` and
    ``AdaptiveAvgAllocation(n_is=64)`` -- for a few rounds each on the card,
    with every kernel launch count set to 0 just before each path and read
    just after; then time ``mrc_logw`` at the block sizes Adaptive-Avg chose;
+   then the variant paths at the same width, 3 rounds each, through
+   ``fl.federator.run_bicompfl`` (``n_dl`` = 10, the paper's default):
+   GR-Reconst (fixed), PR (fixed), PR (adaptive), PR-SplitDL (fixed), and
+   PR at participation 0.5 (fixed, ``cohort_rng="jax"``, through
+   ``FLEngine``), with launches, booked bits and cohorts asserted and the
+   peak device memory logged;
 5. check the card's codecs and KL statistics against the port's CPU routes
    on the same inputs (the CPU routes are tied to the JAX reference by the
-   CPU tests);
+   CPU tests); then one round of each variant channel's indices, card
+   against CPU, on the round-0 inputs;
 6. profile steady rounds of each path with ``torch.profiler``: device time
    by kernel, kernels per round, and the device's idle share of an
    unprofiled steady round; the adaptive path also on the unfused segment
    route (``seg_logw_fn=ops.segment_logw``), as the before to its after;
+   the five variant paths too; each with its peak device memory;
 7. hold the model substrate's kernels (``ops.flash_attention``,
    ``ops.rwkv_time_mix``) against their plain versions at the serving
    path's full-width shapes -- attention of Qwen3-1.7B at (2, 4096, 16 heads,
@@ -83,8 +95,12 @@ from repro_torch import prng, quickstart  # noqa: E402
 from repro_torch.core import mrc  # noqa: E402
 from repro_torch.core.bernoulli import clip01, log_ratio_coeffs  # noqa: E402
 from repro_torch.core.blocks import AdaptiveAllocation, AdaptiveAvgAllocation  # noqa: E402
+from repro_torch.core.blocks import BlockPlan, FixedAllocation  # noqa: E402
+from repro_torch.fl import channels  # noqa: E402
 from repro_torch.fl.channels import TAG_TRAIN  # noqa: E402
 from repro_torch.fl.engine import FLEngine, _kl_stats  # noqa: E402
+from repro_torch.fl.federator import BiCompFLConfig, run_bicompfl  # noqa: E402
+from repro_torch.fl.registry import bicompfl_spec  # noqa: E402
 from repro_torch.kernels import bernoulli_kl, build, mrc_weights, ops  # noqa: E402
 from repro_torch.kernels import flash_attn, rwkv_chunk  # noqa: E402
 from repro_torch.kernels import segment_logw as seg_kernel  # noqa: E402
@@ -141,6 +157,17 @@ INT32_LANES_PER_SM, SMS = 64, 132   # H100 SXM: INT32 units per SM, SMs
 KERNEL_SYMBOLS = {"flash_attention": ("flash_attn_wgmma", "flash_attn_kernel"),
                   "rwkv_time_mix": ("rwkv_intra", "rwkv_inter")}
 PATHS = {"fixed": None, "adaptive": AdaptiveAllocation, "adaptive-avg": AdaptiveAvgAllocation}
+# The other BiCompFL variants at the quickstart's width: (variant,
+# allocation, participation, cohort RNG); n_dl = n_clients * n_ul = 10.
+VARIANTS = {"GR-Reconst fixed": ("GR-Reconst", "fixed", 1.0, "numpy"),
+            "PR fixed": ("PR", "fixed", 1.0, "numpy"),
+            "PR adaptive": ("PR", "adaptive", 1.0, "numpy"),
+            "PR fixed p=0.5 jax cohorts": ("PR", "fixed", 0.5, "jax"),
+            "PR-SplitDL fixed": ("PR-SplitDL", "fixed", 1.0, "numpy")}
+VARIANT_ROUNDS, N_DL = 3, 10
+# The reference's cohorts (repro.fl.engine.FLEngine.cohort_schedule(3, 10, 5,
+# seed 0, "jax"), computed with jax 0.9): what the card's run must draw.
+JAX_COHORTS = [[0, 2, 4, 5, 9], [2, 5, 6, 8, 9], [0, 5, 6, 8, 9]]
 
 
 def log(msg: str) -> None:
@@ -416,9 +443,22 @@ def check_segment_logw(payload, priors, kt, seg, n_seg):
     return row
 
 
+def u_fed_logw(key, pc, a, b, seg_t, n_seg, n_is):
+    """The u-fed kernel fed ``prng``'s draw of ``key``: one call for a
+    shared (2,) key, one call per client for (C, 2) keys."""
+    d = pc.shape[-1]
+    if key.dim() == 1:
+        return seg_kernel.segment_logw_cuda(seg_kernel.segment_candidates(key, n_is, d), pc,
+                                            a, b, seg_t, n_seg)
+    return torch.stack([seg_kernel.segment_logw_cuda(
+        seg_kernel.segment_candidates(key[c], n_is, d), pc[c], a[c], b[c], seg_t, n_seg)
+        for c in range(key.shape[0])])
+
+
 def check_encode_case(label, key, sels, pc, a, b, seg, n_seg, n_is=64):
-    """The keyed kernel through ``ops.segment_mrc_encode``: logW bit-identical
-    to the u-fed kernel fed prng's draw of the same key, logW within the
+    """The keyed kernel through ``ops.segment_mrc_encode`` (``key`` (2,) or
+    one per client, (C, 2)): logW bit-identical to the u-fed kernel fed
+    prng's draw of the same key(s), logW within the
     sums' bound of the plain version, indices equal to the plain version's
     but at near-ties (counted, each below NEAR_TIE), the sample exact where
     the indices agree, and the select pass alone (the decoder) equal to the
@@ -428,8 +468,7 @@ def check_encode_case(label, key, sels, pc, a, b, seg, n_seg, n_is=64):
     d = pc.shape[-1]
     idx, sample, logw = launched_once(ops.segment_mrc_encode, key, sels, pc, a, b, seg_t,
                                       n_is, n_seg)
-    fed = seg_kernel.segment_logw_cuda(seg_kernel.segment_candidates(key, n_is, d), pc, a, b,
-                                       seg_t, n_seg)
+    fed = u_fed_logw(key, pc, a, b, seg_t, n_seg, n_is)
     if not torch.equal(logw, fed):
         raise AssertionError(f"segment_mrc_encode {label}: keyed and u-fed logW differ "
                              f"(max |diff| {(logw - fed).abs().max().item()})")
@@ -508,6 +547,59 @@ def check_segment_encode(payload, priors, kt, seg, n_seg, int_rate, fed_row):
         f"per call); keyed bound {row['bound_ms']:.4f} ms ({row['bound_by']}: {draws} draws x "
         f"{THREEFRY_INT_OPS} INT32 ops at {int_rate:.3e}/s), u-fed bound "
         f"{fed_row['bound_ms']:.4f} ms ({fed_row['bound_by']})")
+    return row
+
+
+def check_client_key_encode(payload, priors, kt, seg, n_seg, int_rate):
+    """The keyed kernel under per-client keys, at PR adaptive's uplink call
+    of a round (the 10 clients' private keys ``client_key(kt, i)``, n_is =
+    64, the round-0 plan), at one client, degenerate segmentations and
+    ragged shapes; a shared key repeated per client must give the shared
+    form's results bit for bit.  Timed against its plain version and the
+    bound of C times the shared form's draws."""
+    n, d = payload.shape
+    pc = clip01(priors).contiguous()
+    a, b = (t.contiguous() for t in log_ratio_coeffs(clip01(payload), priors))
+    keys = mrc.client_key(kt, torch.arange(n, device="cuda"))
+    sels = prng.split(prng.fold_in(kt, 7), n)
+    err, ties = check_encode_case("client keys, main path", keys, sels, pc, a, b, seg, n_seg)
+    check_encode_case("client keys, one client", keys[:1], sels[:1], pc[:1], a[:1], b[:1],
+                      seg, n_seg)
+    check_encode_case("client keys, one segment", keys, sels, pc, a, b,
+                      np.zeros(d, np.int32), 1)
+    check_encode_case("client keys, all singletons", keys[:2], sels[:2], pc[:2], a[:2], b[:2],
+                      np.arange(d, dtype=np.int32), d)
+    rng = np.random.default_rng(5)
+    for cl, nis, d2 in [(3, 33, 1001), (2, 16, 515), (17, 40, 3000)]:
+        gen = torch.Generator(device="cuda").manual_seed(d2 + 1)
+        qq, pp = (torch.rand(cl, d2, generator=gen, device="cuda") for _ in range(2))
+        aa, bb = (t.contiguous() for t in log_ratio_coeffs(qq, pp))
+        sg = np.sort(rng.integers(0, max(d2 // 5, 1), d2)).astype(np.int32)
+        sg -= sg[0]
+        check_encode_case(f"client keys, ragged {cl} clients",
+                          mrc.client_key(kt, torch.arange(cl, device="cuda")),
+                          prng.split(kt, cl), clip01(pp), aa, bb, sg, int(sg[-1]) + 1, n_is=nis)
+    seg_t = torch.as_tensor(seg, dtype=torch.int32, device="cuda")
+    shared = seg_kernel.segment_mrc_encode_cuda(kt, sels, pc, a, b, seg_t, 64, n_seg)
+    repeated = seg_kernel.segment_mrc_encode_cuda(kt.expand(n, 2).contiguous(), sels, pc, a, b,
+                                                  seg_t, 64, n_seg)
+    if not all(torch.equal(x, y) for x, y in zip(shared, repeated)):
+        raise AssertionError("segment_mrc_encode: a shared key repeated per client differs "
+                             "from the shared form")
+    kernel = lambda: ops.segment_mrc_encode(keys, sels, pc, a, b, seg_t, 64, n_seg)  # noqa: E731
+    plain = lambda: seg_kernel.segment_mrc_encode_ref(  # noqa: E731
+        keys, sels, pc, a, b, seg_t.long(), 64, n_seg)
+    draws = n * 64 * d + n * 64 * n_seg
+    nbytes = 4 * (3 * n * d + d + n * d + n * 64 * n_seg) + 8 * (n * n_seg + 2 * n + 2 * n)
+    row = timed_row("segment_mrc_encode, client keys", (n, 64, d, n_seg), err, kernel, plain,
+                    None, nbytes, draws * THREEFRY_INT_OPS, int_rate)
+    row["device_ms"], row["device_kernels_per_call"] = device_per_call(kernel, 20)
+    row.update(near_tie_mismatches=ties, threefry_draws=draws, int32_ops_per_s=int_rate)
+    log(f"segment_mrc_encode, client keys ({n}, 64, {d}, {n_seg}): kernel {row['ms']:.4f} ms "
+        f"(device {row['device_ms']:.4f} ms in {row['device_kernels_per_call']:.1f} kernels "
+        f"per call), plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}: {draws} draws x {THREEFRY_INT_OPS} INT32 ops); a shared key "
+        f"repeated per client gives the shared form's logW, indices and sample bit for bit")
     return row
 
 
@@ -590,6 +682,97 @@ def check_path(name, launches, plans, out):
     log(f"  booked bits per round: {[round(b - a, 1) for a, b in zip([0.0] + cum, cum)]}")
 
 
+def variant_allocation(kind):
+    return logged(AdaptiveAllocation)(n_is=quickstart.CONFIG["n_is"]) if kind == "adaptive" \
+        else logged(FixedAllocation)(quickstart.CONFIG["block_size"])
+
+
+def run_variant(label, rounds=VARIANT_ROUNDS):
+    """One variant path at full width, launch counts set to 0 just before
+    and read just after, peak device memory from a reset just before.
+    Returns (launches, plans, out, peak bytes)."""
+    variant, kind, part, cohort_rng = VARIANTS[label]
+    c = quickstart.CONFIG
+    task, _, shards = quickstart.build("cuda")
+    alloc = variant_allocation(kind)
+    alloc.log = plans = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    if cohort_rng == "numpy":
+        out = run_bicompfl(task, shards, BiCompFLConfig(
+            variant=variant, allocation=alloc, n_is=c["n_is"], rounds=rounds, seed=c["seed"],
+            eval_every=1, participation=part))
+    else:
+        spec = bicompfl_spec(variant, allocation=alloc, n_is=c["n_is"], n_dl=N_DL,
+                             participation=part)
+        out = FLEngine(task, spec).run(shards, rounds=rounds, seed=c["seed"], eval_every=1,
+                                       cohort_rng=cohort_rng)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    ph = out["phase_seconds"]
+    log(f"variant {label}: {rounds} rounds in {wall:.3f} s; launches {launches}; accuracy "
+        f"{[round(h['acc'], 4) for h in out['history']]}; peak device memory "
+        f"{peak / 2**20:.1f} MiB; rounds 2-{rounds} mean: " + ", ".join(
+            f"{k} {1e3 * sum(v[1:]) / len(v[1:]):.3f} ms" for k, v in ph.items())
+        + " (host clock)")
+    return launches, plans, out, peak
+
+
+def check_variant(label, launches, plans, out, rounds=VARIANT_ROUNDS):
+    """Launches (1 uplink + N_DL downlink encodes a round), cohorts, booked
+    bits against the variants' formulas, and the estimates' shape."""
+    variant, kind, part, cohort_rng = VARIANTS[label]
+    c = quickstart.CONFIG
+    n, d = c["n_clients"], int(out["theta"].shape[0])
+    n_act = max(1, int(round(part * n)))
+    expect = {k: 0 for k in KERNELS}
+    if kind == "adaptive":
+        expect["segment_mrc_encode"] = rounds * (1 + N_DL)
+        expect["bernoulli_kl_profile"] = rounds
+    else:
+        expect["mrc_logw"] = rounds * (1 + N_DL)
+    if d != 28160 or launches != expect:
+        raise AssertionError(f"variant {label}: d {d}, launches {launches}, expected {expect}")
+    sched = out["active_schedule"]
+    if sched.shape != (rounds, n_act) or (cohort_rng == "jax" and sched.tolist() !=
+                                          JAX_COHORTS[:rounds]):
+        raise AssertionError(f"variant {label}: cohorts {sched.tolist()}")
+    bits, cum, total = math.log2(c["n_is"]), [], 0.0
+    for pl in plans:
+        nb = pl[1]
+        if kind == "adaptive" and (pl[0] is not None or int(pl[2][-1]) + 1 != nb):
+            raise AssertionError(f"adaptive plan is not a segmentation: {pl[:2]}")
+        if kind == "fixed" and pl[:2] != (c["block_size"], -(-d // c["block_size"])):
+            raise AssertionError(f"fixed plan {pl[:2]}")
+        up = n_act * nb * bits + pl[3] * n
+        if variant == "GR-Reconst":
+            down = n * N_DL * nb * bits
+        elif variant == "PR":
+            down = n_act * N_DL * nb * bits
+        else:  # PR-SplitDL: ceil(B / n) blocks per client, sentinel included
+            down = n * N_DL * -(-nb // n) * bits
+        total += up + down
+        cum.append(total)
+    got = [h["cum_bits"] for h in out["history"]]
+    if len(plans) != rounds or got != cum:
+        raise AssertionError(f"variant {label}: booked bits {got}, expected {cum}")
+    theta, th = out["theta"], out["theta_hat"]
+    if tuple(th.shape) != (n, d) or not all(math.isfinite(h["acc"]) for h in out["history"]) \
+            or not bool(torch.isfinite(th).all() and torch.isfinite(theta).all()) \
+            or float(th.min()) < 0 or float(th.max()) > 1:
+        raise AssertionError(f"variant {label}: estimates not finite, not in [0, 1] or of "
+                             f"shape {tuple(th.shape)}")
+    if (variant == "GR-Reconst") != bool((th == th[0]).all()):
+        raise AssertionError(f"variant {label}: clients' estimates equal only under "
+                             "GR-Reconst's common candidates")
+    log(f"  booked bits per round: {[round(b - a, 1) for a, b in zip([0.0] + cum, cum)]}; "
+        f"cohorts {sched.tolist() if n_act < n else 'all'}")
+
+
 # ---------------------------------------------------------------------------
 # Phase 5: card vs CPU on the same inputs.
 # ---------------------------------------------------------------------------
@@ -655,6 +838,48 @@ def phase_codec_vs_cpu(payload, priors, kt):
         raise AssertionError("same index, different decoded sample")
 
 
+def phase_variants_vs_cpu(payload, priors, kt, seg, n_seg):
+    """One round of each variant channel's MRC indices, card vs CPU, on the
+    round-0 inputs: the PR uplinks (private keys) and the PR downlink on a
+    cohort of 3 (so that the CPU's int64 threefry stays within seconds),
+    the GR-Reconst and PR-SplitDL downlinks over all 10 clients; one
+    conveyed sample each.  An index may flip only where the card's and the
+    CPU's sums round differently (MIN_INDEX_MATCH, as above)."""
+    n, d = payload.shape
+    active = np.linspace(0, n - 1, 3).astype(np.int64)     # [0, 4, 9] of 10
+    fixed = BlockPlan(size=128, n_blocks=-(-d // 128), seg_ids=None, overhead_bits=0.0)
+    segs = BlockPlan(size=None, n_blocks=n_seg, seg_ids=seg, overhead_bits=0.0)
+    target = mrc.sample_mean(payload)
+    cases = [("PR uplink, fixed", channels.MRCFixedChannel(n_is=64, shared=False), fixed, True),
+             ("PR uplink, adaptive", channels.MRCAdaptiveChannel(n_is=64, shared=False), segs,
+              True),
+             ("PR downlink, fixed", channels.MRCPrivateDownlink(n_is=64), fixed, True),
+             ("PR downlink, adaptive", channels.MRCPrivateDownlink(n_is=64), segs, True),
+             ("GR-Reconst downlink, fixed", channels.MRCBroadcastDownlink(n_is=64), fixed, False),
+             ("GR-Reconst downlink, adaptive", channels.MRCBroadcastDownlink(n_is=64), segs,
+              False),
+             ("PR-SplitDL downlink", channels.SplitBlockDownlink(n_is=64), fixed, False)]
+    for label, chan, plan, partial in cases:
+        idx = []
+        for dev in ("cuda", "cpu"):
+            ids = active if partial else np.arange(n)
+            ctx = channels.RoundContext(t=0, key=kt.to(dev), n_clients=n, d=d, active=ids,
+                                        plan=plan)
+            if isinstance(chan, channels.StatelessUplink):
+                rows = torch.as_tensor(ids, device="cuda")
+                out = chan._transmit(ctx, payload[rows].to(dev), priors[rows].to(dev))
+            else:
+                out = chan._transmit(ctx, channels.ServerUpdate(theta=target.to(dev)),
+                                     priors.to(dev))
+            idx.append(out[0].cpu())
+        same = idx[0] == idx[1]
+        rate = float(same.to(torch.float32).mean())
+        log(f"{label}: card vs cpu index match {rate:.5f} over {same.numel()} "
+            f"{'segments' if plan.adaptive else 'blocks'}")
+        if idx[0].shape != idx[1].shape or rate < MIN_INDEX_MATCH:
+            raise AssertionError(f"{label}: card/cpu index match {rate} < {MIN_INDEX_MATCH}")
+
+
 # ---------------------------------------------------------------------------
 # Phase 6: profile.
 # ---------------------------------------------------------------------------
@@ -665,24 +890,39 @@ def phase_profile(name, rounds: int, unfused: bool = False):
     device's idle share of an unprofiled steady round (the mean of rounds
     2-ROUNDS of an unprofiled run; the profiler slows the host many-fold).
     ``unfused``: the adaptive uplink takes the route the keyed kernel
-    replaced (``seg_logw_fn=ops.segment_logw``), for the before/after."""
-    task, spec, shards = quickstart.build("cuda", dict(quickstart.CONFIG, allocation=name))
+    replaced (``seg_logw_fn=ops.segment_logw``), for the before/after.  A
+    name of ``VARIANTS`` profiles that variant path (n_dl = 10); the peak
+    device memory is that of the unprofiled run."""
+    run_kw = {}
+    if name in VARIANTS:
+        variant, kind, part, cohort_rng = VARIANTS[name]
+        task, _, shards = quickstart.build("cuda")
+        alloc = quickstart.make_allocation(dict(quickstart.CONFIG, allocation=kind))
+        spec = bicompfl_spec(variant, allocation=alloc, n_is=quickstart.CONFIG["n_is"],
+                             n_dl=N_DL, participation=part)
+        run_kw = {"cohort_rng": cohort_rng}
+    else:
+        task, spec, shards = quickstart.build("cuda", dict(quickstart.CONFIG, allocation=name))
     if unfused:
         spec.uplink.seg_logw_fn = ops.segment_logw_fn()
         name = f"{name} (unfused segment route)"
     engine = FLEngine(task, spec)
-    engine.run(shards, rounds=1)  # warm-up outside the window
-    ph = engine.run(shards, rounds=ROUNDS)["phase_seconds"]
+    engine.run(shards, rounds=1, **run_kw)  # warm-up outside the window
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ph = engine.run(shards, rounds=ROUNDS, **run_kw)["phase_seconds"]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
     steady_ms = 1e3 * sum(sum(v[1:]) for v in ph.values()) / (ROUNDS - 1)
-    busy_ms, kernels = device_profile(lambda: engine.run(shards, rounds=rounds), rounds)
+    busy_ms, kernels = device_profile(lambda: engine.run(shards, rounds=rounds, **run_kw),
+                                      rounds)
     if busy_ms == 0:
         log(f"profile {name}: the profiler saw no device time (device busy: not measured)")
         return None
     per_round = sum(e.count for e in kernels) // rounds
     log(f"profile {name}: device busy {busy_ms:.3f} ms per round in {per_round} kernels; "
         f"steady round {steady_ms:.3f} ms unprofiled -> device idle share "
-        f"{1 - busy_ms / steady_ms:.4f}")
+        f"{1 - busy_ms / steady_ms:.4f}; peak device memory {peak / 2**20:.1f} MiB")
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
     own = ("mrc_logw_kernel", "kl_rows", "kl_cols", "seg_pass", "seg_select")
     for i, e in enumerate(ranked):
@@ -690,7 +930,8 @@ def phase_profile(name, rounds: int, unfused: bool = False):
             log(f"  {e.self_device_time_total / rounds / 1e3:8.3f} ms/round  "
                 f"x{e.count // rounds:<5d} {e.key[:100]}")
     return {"device_busy_ms": busy_ms, "kernels_per_round": per_round,
-            "steady_round_ms": steady_ms, "idle_share": 1 - busy_ms / steady_ms}
+            "steady_round_ms": steady_ms, "idle_share": 1 - busy_ms / steady_ms,
+            "peak_memory_mib": peak / 2**20}
 
 
 # ---------------------------------------------------------------------------
@@ -993,6 +1234,7 @@ def main() -> int:
     _, n_seg, seg, _ = AdaptiveAllocation(n_is=64).plan(profile, payload.shape[1])
     seg_row = check_segment_logw(payload, priors, kt, seg, n_seg)
     enc_row = check_segment_encode(payload, priors, kt, seg, n_seg, int_rate, seg_row)
+    ck_row = check_client_key_encode(payload, priors, kt, seg, n_seg, int_rate)
 
     # Phase 4.
     runs = {}
@@ -1002,15 +1244,31 @@ def main() -> int:
     avg_sizes = sorted({pl[0] for pl in runs["adaptive-avg"][1]})
     n = quickstart.CONFIG["n_clients"]
     avg_rows = [check_mrc_logw((n * (-(-28160 // s)), 64, s), seed=10 + s) for s in avg_sizes]
+    t_var = time.perf_counter()
+    peaks = {}
+    for label in VARIANTS:
+        launches, plans, out, peaks[label] = run_variant(label)
+        check_variant(label, launches, plans, out)
+        runs[label] = (launches, plans, out)
+    t_var = time.perf_counter() - t_var
 
     # Phase 5.
     phase_codec_vs_cpu(payload, priors, kt)
+    t5 = time.perf_counter()
+    phase_variants_vs_cpu(payload, priors, kt, seg, n_seg)
+    t5 = time.perf_counter() - t5
 
     # Phase 6.
+    t6 = time.perf_counter()
     profiles = {"fixed": phase_profile("fixed", 2),
                 "adaptive": phase_profile("adaptive", 1),
                 "adaptive (unfused segment route)": phase_profile("adaptive", 1, unfused=True),
-                "adaptive-avg": phase_profile("adaptive-avg", 1)}
+                "adaptive-avg": phase_profile("adaptive-avg", 1),
+                **{label: phase_profile(label, 1) for label in VARIANTS}}
+    t6 = time.perf_counter() - t6
+    log(f"variant phases' seconds: paths {t_var:.1f} (peak device memory MiB "
+        f"{ {k: round(v / 2**20, 1) for k, v in peaks.items()} }), card vs cpu {t5:.1f}, "
+        f"profiles (all paths) {t6:.1f}")
 
     t_fl = time.perf_counter()
     # Phase 7.
@@ -1029,8 +1287,10 @@ def main() -> int:
         f"{marks[0] - t_fl:.1f}, prefill {marks[1] - marks[0]:.1f}, cross-check "
         f"{marks[2] - marks[1]:.1f}, serve {marks[3] - marks[2]:.1f}")
 
-    def by_path(*names):
-        return {p: sum(runs[p][0][k] for k in names) for p in PATHS}
+    def by_path(*names, paths=None):
+        return {p: sum(runs[p][0][k] for k in names) for p in (paths or runs)}
+
+    shared_paths = [p for p in runs if p != "PR adaptive"]   # PR's keys are per client
 
     def by_model(name):
         return {**{f"{arch} prefill": prefill[arch][name] for arch in MODELS},
@@ -1046,8 +1306,13 @@ def main() -> int:
             ("segment_logw", "segment_logw", "src/repro/kernels/segment_logw.py:92", seg_row,
              by_path("segment_logw"), {"shape": seg_row["shape"], "form": "u-fed"}),
             ("segment_mrc_encode", "segment_logw", "src/repro/kernels/segment_logw.py:92",
-             enc_row, by_path("segment_mrc_encode"),
+             enc_row, by_path("segment_mrc_encode", paths=shared_paths),
              {"form": "keyed", **{k: v for k, v in enc_row.items() if k not in keys}}),
+            ("segment_mrc_encode_client_keys", "segment_logw",
+             "src/repro/kernels/segment_logw.py:92", ck_row,
+             by_path("segment_mrc_encode", paths=["PR adaptive"]),
+             {"form": "keyed, one key per client",
+              **{k: v for k, v in ck_row.items() if k not in keys}}),
             ("flash_attn", "flash_attn", "src/repro/kernels/flash_attn.py:95",
              model_rows["flash_bf16"], by_model("flash_attention"),
              {"shape": model_rows["flash_bf16"]["shape"], "dtype": "bfloat16",

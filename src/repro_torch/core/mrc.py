@@ -16,10 +16,12 @@ the decoders regenerate only the selected rows.
 Batching replaces ``vmap``: ``q`` and ``p`` are ``(N..., B, S)`` with any
 leading batch axes (the cohort), and a key is either one key ``(2,)``
 shared by the whole batch (the GR variant's common candidates) or one key
-per batch element ``(N..., 2)``.  The importance weights of the whole batch
+per batch element ``(N..., 2)`` (the PR variants' private candidates), in
+both codecs.  The importance weights of the whole batch
 go through ONE ``logw_fn`` call of shape ``(prod(N)*B, n_is, S)`` (one
-``seg_logw_fn`` call for the segment codec); the indices do not depend on
-how the blocks are batched.
+``seg_logw_fn`` call for the segment codec, one per element under
+per-element keys); the indices do not depend on how the blocks are
+batched.
 """
 from __future__ import annotations
 
@@ -176,7 +178,8 @@ def receive_fixed(shared_key: torch.Tensor, indices: torch.Tensor,
 SegLogWFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                       torch.Tensor, int], torch.Tensor]
 # signature: (u: (n_is, d) uniforms shared by the clients, p: (C, d) clipped prior,
-#             a: (C, d), b: (C, d), seg_ids: (d,), n_seg) -> (C, n_is, n_seg)
+#             a: (C, d), b: (C, d), seg_ids: (d,), n_seg) -> (C, n_is, n_seg);
+# under per-client keys it is called once per client, with (d,) coefficients.
 
 # Plain segment log-weights, the reference's jnp default (``where`` and a
 # segment sum).  Without a ``seg_logw_fn``, ``encode_segments`` runs the
@@ -213,15 +216,16 @@ def _seg_tensor(seg_ids, device) -> torch.Tensor:
 
 def _encode_segments(shared_key, select_key, q, p, seg, *, n_is, n_seg,
                      seg_logw_fn) -> MRCResult:
-    if shared_key.dim() != 1:
-        raise ValueError(f"shared_key must be one key (2,), got {tuple(shared_key.shape)}")
     a, b = log_ratio_coeffs(q, p)                                  # (N..., d)
-    lead, d = a.shape[:-1], a.shape[-1]
+    d = a.shape[-1]
+    lead = torch.broadcast_shapes(a.shape[:-1], select_key.shape[:-1],
+                                  shared_key.shape[:-1])
 
     def flat(t, width):  # (N..., width) -> (C, width), what the kernel takes
         return t.expand(lead + (width,)).reshape(-1, width).contiguous()
 
-    args = (shared_key, flat(select_key, 2), flat(clip01(p), d), flat(a, d), flat(b, d),
+    key = shared_key if shared_key.dim() == 1 else flat(shared_key, 2)
+    args = (key, flat(select_key, 2), flat(clip01(p), d), flat(a, d), flat(b, d),
             seg, n_is, n_seg)
     if seg_logw_fn is None:
         idx, sample, _ = ops.segment_mrc_encode(*args)
@@ -236,10 +240,10 @@ def encode_segments(shared_key: torch.Tensor, select_key: torch.Tensor,
     """MRC over variable blocks given per-parameter segment ids ``(d,)``.
 
     ``q`` and ``p`` are ``(N..., d)``; ``shared_key`` is one key ``(2,)``
-    (common candidates: one ``(n_is, d)`` draw serves the whole batch; the
-    PR variants' private keys come with those variants); ``select_key`` is
-    ``(N..., 2)``.  Returns indices ``(N..., n_seg)`` and the decoder-side
-    sample ``(N..., d)``.
+    (common candidates: one ``(n_is, d)`` draw serves the whole batch) or
+    one key per element ``(N..., 2)`` (the PR variants' private candidates:
+    one draw per element); ``select_key`` is ``(N..., 2)``.  Returns
+    indices ``(N..., n_seg)`` and the decoder-side sample ``(N..., d)``.
 
     logW(i, s) = sum_{e in s} x_ie a_e + sum_{e in s} b_e, with the
     candidate term a fused compare+select ``where(u < p, a, 0)``; the
@@ -257,10 +261,11 @@ def encode_segments(shared_key: torch.Tensor, select_key: torch.Tensor,
 
 def _decode_segments(shared_key, indices, p, seg) -> torch.Tensor:
     pc = clip01(p)
-    lead = torch.broadcast_shapes(indices.shape[:-1], pc.shape[:-1])
+    lead = torch.broadcast_shapes(indices.shape[:-1], pc.shape[:-1], shared_key.shape[:-1])
     idx = indices.to(torch.int64).expand(lead + indices.shape[-1:]).contiguous()
-    return ops.segment_select(shared_key, idx, pc.expand(lead + pc.shape[-1:]).contiguous(),
-                              seg)
+    key = shared_key if shared_key.dim() == 1 else \
+        shared_key.expand(lead + (2,)).contiguous()
+    return ops.segment_select(key, idx, pc.expand(lead + pc.shape[-1:]).contiguous(), seg)
 
 
 def decode_segments(shared_key: torch.Tensor, indices: torch.Tensor,
@@ -269,8 +274,9 @@ def decode_segments(shared_key: torch.Tensor, indices: torch.Tensor,
 
     Regenerates only the selected candidate row of each parameter (O(d),
     not O(d * n_is)), through ``kernels.ops.segment_select`` (the encoder
-    kernel's select pass on the card); ``n_is`` is kept for the
-    reference's signature.
+    kernel's select pass on the card); ``shared_key`` is ``(2,)`` or one
+    key per element ``(N..., 2)``, as in ``encode_segments``; ``n_is`` is
+    kept for the reference's signature.
     """
     return _decode_segments(shared_key, indices, p, _seg_tensor(seg_ids, p.device))
 

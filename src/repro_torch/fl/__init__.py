@@ -1,1 +1,2 @@
-"""Federated-learning stack of the port: nets, data, tasks, channels, engine."""
+"""Federated-learning stack of the port: nets, data, tasks, channels, engine,
+registry and the federator entry point."""

@@ -13,11 +13,14 @@ and downlinks::
 with ``transmit`` / ``distribute`` as the stateless object shell.  Bits are
 computed from shapes and the round's :class:`BlockPlan`, as Python floats.
 
-This port holds BiCompFL-GR's channels: ``MRCFixedChannel`` (MRC uplink
-over fixed blocks), ``MRCAdaptiveChannel`` (MRC uplink over the variable
-segments of an adaptive plan), both on shared candidates, and
-``IndexRelayDownlink``.  The wire codecs (``encode_up``, ``decode_up`` and
-friends) and the fused path's ``pin`` come later.
+This port holds the channels of the four BiCompFL variants:
+``MRCFixedChannel`` (MRC uplink over fixed blocks) and
+``MRCAdaptiveChannel`` (MRC uplink over the variable segments of an
+adaptive plan), each on shared (GR) or private (PR) candidates;
+``IndexRelayDownlink`` (GR), ``MRCBroadcastDownlink`` (GR-Reconst),
+``MRCPrivateDownlink`` (PR) and ``SplitBlockDownlink`` (PR-SplitDL).  The
+wire codecs (``encode_up``, ``decode_up`` and friends) and the fused path's
+``pin`` come later.
 
 The key-derivation tags are the reference's, so both packages draw the same
 candidates and selections in every round.
@@ -28,6 +31,7 @@ import math
 from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import prng
@@ -44,7 +48,7 @@ TAG_UL_SELECT = 2      # uplink Gumbel selection stream
 TAG_DL_SHARED = 3      # downlink candidate stream
 TAG_DL_SELECT_COMMON = 4   # downlink selection, common (GR-Reconst)
 TAG_DL_SELECT_PRIVATE = 5  # downlink selection, per-client (PR variants)
-TAG_COHORT = 6         # key-derived cohort sampling (not ported yet)
+TAG_COHORT = 6         # key-derived cohort sampling (engine, cohort_rng="jax")
 
 # State of a stateless channel.
 EMPTY_STATE: Tuple = ()
@@ -150,14 +154,16 @@ class StatelessDownlink:
 class MRCFixedChannel(StatelessUplink):
     """Uplink MRC over fixed-size blocks, batched across the cohort.
 
-    GR: every client draws its candidates from the *common* round key (the
-    PR variants' private keys come with those variants).  The cohort's
-    blocks are encoded in one batch: one ``logw_fn`` call (one kernel launch
-    on the card) per round and conveyed sample.
+    ``shared=True`` (GR): every client draws its candidates from the
+    *common* round key; ``shared=False`` (PR): client i from its private
+    ``client_key(kt, i)``.  The cohort's blocks are encoded in one batch:
+    one ``logw_fn`` call (one kernel launch on the card) per round and
+    conveyed sample.
     """
 
     n_is: int = 256
     n_samples: int = 1
+    shared: bool = True
     logw_fn: Any = None
 
     def _transmit(self, ctx, payload, priors):
@@ -167,8 +173,9 @@ class MRCFixedChannel(StatelessUplink):
         qb = to_blocks(clip01(payload), plan.size)   # (n_act, B, S)
         pb = to_blocks(clip01(priors), plan.size)
         sels = _vfold(prng.fold_in(kt, TAG_UL_SELECT), ctx.active_ids)
+        skey = kt if self.shared else mrc.client_key(kt, ctx.active_ids)
         idxs, q_hat_b = mrc.transmit_fixed(
-            kt, sels, qb, pb, n_is=self.n_is, n_samples=self.n_samples,
+            skey, sels, qb, pb, n_is=self.n_is, n_samples=self.n_samples,
             logw_fn=self.logw_fn)
         bits = ctx.n_active * self.n_samples * plan.billable * math.log2(self.n_is)
         return idxs, from_blocks(q_hat_b, ctx.d), bits
@@ -187,15 +194,18 @@ class MRCFixedChannel(StatelessUplink):
 class MRCAdaptiveChannel(StatelessUplink):
     """Uplink MRC over variable-size segments (Isik et al. 2024 allocation).
 
-    GR: every client's candidates come from the common round key, so the
-    whole cohort's segment encode per conveyed sample is one
+    The whole cohort's segment encode per conveyed sample is one
     ``ops.segment_mrc_encode`` call (on the card one kernel, which draws
-    the candidates in place).  A ``seg_logw_fn`` (as in the reference)
-    takes the unfused route instead: one ``(n_is, d)`` draw, weighed by it.
+    the candidates in place): from the common round key (``shared=True``,
+    GR), or client i's from its private ``client_key(kt, i)``
+    (``shared=False``, PR).  A ``seg_logw_fn`` (as in the reference) takes
+    the unfused route instead: the ``(n_is, d)`` candidates drawn (once per
+    client under private keys) and weighed by it.
     """
 
     n_is: int = 256
     n_samples: int = 1
+    shared: bool = True
     seg_logw_fn: Any = None
 
     def _transmit(self, ctx, payload, priors):
@@ -203,8 +213,9 @@ class MRCAdaptiveChannel(StatelessUplink):
         plan = ctx.plan
         kt = ctx.key
         sels = _vfold(prng.fold_in(kt, TAG_UL_SELECT), ctx.active_ids)
+        skey = kt if self.shared else mrc.client_key(kt, ctx.active_ids)
         idxs, q_hat = mrc.transmit_segments(
-            kt, sels, clip01(payload), clip01(priors), plan.seg_ids, n_is=self.n_is,
+            skey, sels, clip01(payload), clip01(priors), plan.seg_ids, n_is=self.n_is,
             n_seg=plan.n_blocks, n_samples=self.n_samples, seg_logw_fn=self.seg_logw_fn)
         bits = ctx.n_active * self.n_samples * plan.billable * math.log2(self.n_is)
         return idxs, q_hat, bits
@@ -238,3 +249,141 @@ class IndexRelayDownlink(StatelessDownlink):
         bits = n * (n - 1) * (self.n_samples * ctx.plan.billable
                               * math.log2(self.n_is))
         return DownlinkResult(th, th[None].repeat(n, 1), bits), state
+
+
+# ---------------------------------------------------------------------------
+# BiCompFL-GR-Reconst, PR and PR-SplitDL downlinks.
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class MRCBroadcastDownlink(StatelessDownlink):
+    """GR-Reconst downlink: one MRC re-transmission of the new model against
+    the common prior; all clients share candidates and end with the same
+    (noisy) estimate."""
+
+    n_is: int = 256
+    n_samples: int = 1           # n_DL
+    logw_fn: Any = None
+    broadcast_shareable: bool = True
+
+    def _transmit(self, ctx, update, theta_hat):
+        """Returns (indices (n_samples, B), estimate (d,), bits)."""
+        kt, plan, d = ctx.key, ctx.plan, ctx.d
+        skey = prng.fold_in(kt, TAG_DL_SHARED)
+        sel = prng.fold_in(kt, TAG_DL_SELECT_COMMON)
+        p_common = clip01(theta_hat[0])
+        tgt = update.theta
+        if plan.adaptive:
+            idxs, est = mrc.transmit_segments(
+                skey, sel, tgt, p_common, plan.seg_ids, n_is=self.n_is,
+                n_seg=plan.n_blocks, n_samples=self.n_samples)
+        else:
+            idxs, est_b = mrc.transmit_fixed(
+                skey, sel, to_blocks(tgt, plan.size), to_blocks(p_common, plan.size),
+                n_is=self.n_is, n_samples=self.n_samples, logw_fn=self.logw_fn)
+            est = from_blocks(est_b, d)
+        bits = ctx.n_clients * self.n_samples * plan.billable * math.log2(self.n_is)
+        return idxs, est, bits
+
+    def step_down(self, ctx, state, update, theta, theta_hat):
+        _, est, bits = self._transmit(ctx, update, theta_hat)
+        return DownlinkResult(update.theta, clip01(est)[None].repeat(ctx.n_clients, 1),
+                              bits), state
+
+
+@dataclass
+class MRCPrivateDownlink(StatelessDownlink):
+    """PR downlink: per-client MRC of the new model against each client's
+    own prior, on its private candidates ``fold_in(client_key(kt, i),
+    TAG_DL_SHARED)``, batched over the cohort.  Under partial participation
+    only the active cohort receives the downlink; the others keep stale
+    estimates."""
+
+    n_is: int = 256
+    n_samples: int = 1           # n_DL
+    logw_fn: Any = None
+    broadcast_shareable: bool = False
+
+    def _transmit(self, ctx, update, theta_hat):
+        """Returns (indices (n_act, n_samples, B), estimates (n_act, d), bits)."""
+        kt, plan, d = ctx.key, ctx.plan, ctx.d
+        ids = ctx.active_ids
+        skeys = prng.fold_in(mrc.client_key(kt, ids), TAG_DL_SHARED)
+        sels = _vfold(prng.fold_in(kt, TAG_DL_SELECT_PRIVATE), ids)
+        priors = clip01(theta_hat[ids])
+        tgt = update.theta
+        if plan.adaptive:
+            idxs, est = mrc.transmit_segments(
+                skeys, sels, tgt, priors, plan.seg_ids, n_is=self.n_is,
+                n_seg=plan.n_blocks, n_samples=self.n_samples)
+        else:
+            idxs, est_b = mrc.transmit_fixed(
+                skeys, sels, to_blocks(tgt, plan.size), to_blocks(priors, plan.size),
+                n_is=self.n_is, n_samples=self.n_samples, logw_fn=self.logw_fn)
+            est = from_blocks(est_b, d)
+        bits = ctx.n_active * self.n_samples * plan.billable * math.log2(self.n_is)
+        return idxs, est, bits
+
+    def step_down(self, ctx, state, update, theta, theta_hat):
+        _, est, bits = self._transmit(ctx, update, theta_hat)
+        theta_hat = theta_hat.clone()
+        theta_hat[ctx.active_ids] = clip01(est)
+        return DownlinkResult(update.theta, theta_hat, bits), state
+
+
+@dataclass
+class SplitBlockDownlink(StatelessDownlink):
+    """PR-SplitDL: each client receives MRC only for a disjoint 1/n of the
+    blocks (downlink cost / n); the rest of its estimate stays as it is.
+
+    Client i owns the interleaved blocks ``arange(i, B, n)``.  The lists are
+    ragged when B % n != 0, so each is padded to ``max_len = ceil(B / n)``
+    with a sentinel block B, a 0.5 row that is encoded, billed and then
+    discarded: the whole downlink is one batched transmission.  Inside it a
+    block's candidate key is ``fold_in(skey_i, j)`` with j the block's
+    position in client i's list, not its global id.  Fixed blocks only.
+    """
+
+    n_is: int = 256
+    n_samples: int = 1           # n_DL
+    logw_fn: Any = None
+    broadcast_shareable: bool = False
+
+    @staticmethod
+    def _ownership(n: int, n_blocks: int):
+        """The padded (n, max_len) block-ownership table and ``max_len``."""
+        max_len = -(-n_blocks // n)
+        own_pad = np.full((n, max_len), n_blocks, np.int64)
+        for i in range(n):
+            own = np.arange(i, n_blocks, n)
+            own_pad[i, :len(own)] = own
+        return own_pad, max_len
+
+    def _transmit(self, ctx, update, theta_hat):
+        """Returns (indices (n, n_samples, max_len), new theta_hat (n, d), bits)."""
+        kt, plan, d = ctx.key, ctx.plan, ctx.d
+        if plan.adaptive:
+            raise NotImplementedError("SplitDL is defined on fixed blocks")
+        n, size, n_blocks = ctx.n_clients, plan.size, plan.n_blocks
+        own_pad, max_len = self._ownership(n, n_blocks)
+        own = torch.as_tensor(own_pad, device=theta_hat.device)
+        tb = to_blocks(update.theta, size)                         # (B, S)
+        dummy = tb.new_full((1, size), 0.5)
+        tb_ext = torch.cat([tb, dummy])                            # (B + 1, S)
+        hb_ext = torch.cat([to_blocks(clip01(theta_hat), size),
+                            dummy[None].expand(n, 1, size)], dim=1)  # (n, B + 1, S)
+        ids = torch.arange(n, dtype=torch.int64, device=theta_hat.device)
+        skeys = prng.fold_in(mrc.client_key(kt, ids), TAG_DL_SHARED)
+        sels = _vfold(prng.fold_in(kt, TAG_DL_SELECT_PRIVATE), ids)
+        rows = own[..., None].expand(n, max_len, size)
+        idxs, est_b = mrc.transmit_fixed(
+            skeys, sels, tb_ext[own], torch.take_along_dim(hb_ext, rows, dim=1),
+            n_is=self.n_is, n_samples=self.n_samples, logw_fn=self.logw_fn)
+        hb_ext = hb_ext.scatter(1, rows, clip01(est_b))  # owned lists hold no repeats
+        bits = n * self.n_samples * max_len * math.log2(self.n_is)
+        return idxs, from_blocks(hb_ext[:, :n_blocks], d), bits
+
+    def step_down(self, ctx, state, update, theta, theta_hat):
+        _, theta_hat, bits = self._transmit(ctx, update, theta_hat)
+        return DownlinkResult(update.theta, theta_hat, bits), state

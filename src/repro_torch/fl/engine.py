@@ -4,9 +4,11 @@ Port of ``repro.fl.engine`` for this slice: an :class:`EngineSpec` (uplink,
 downlink, aggregator, block allocation) run by :class:`FLEngine` on the host
 path -- a Python loop over rounds whose work runs on the task's device.  The
 engine owns what every scheme shares: the shared-randomness key schedule,
-the block-allocation control plane, BitMeter accounting and the evaluation
-history.  Every client takes part in every round (BiCompFL-GR needs all of
-them to track the common candidate stream).
+the block-allocation control plane, BitMeter accounting, the cohort
+schedule and the evaluation history.  Under partial participation
+(``EngineSpec.participation`` < 1, the PR variants only) each round trains
+and transmits a cohort drawn by :meth:`FLEngine.cohort_schedule`; the other
+clients keep their estimates.
 
 The block plan is a host-side numpy decision each round, as in the
 reference: an adaptive allocation reads the round's KL statistic
@@ -14,9 +16,8 @@ reference: an adaptive allocation reads the round's KL statistic
 
 Not ported yet, and refused with ``NotImplementedError``: the fused
 whole-run path (``mode="fused"``), the wire audit, fault injection,
-checkpoint/resume and key-derived cohorts (``cohort_rng="jax"``).  Partial
-participation and the error-feedback sync of the baselines come with the
-schemes that use them.
+and checkpoint/resume.  The error-feedback sync of the baselines comes
+with the schemes that use it.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ from repro_torch.core import mrc
 from repro_torch.core.bernoulli import bern_kl, clip01
 from repro_torch.core.bitmeter import BitMeter
 from repro_torch.kernels import ops
-from .channels import BlockPlan, RoundContext, ServerUpdate, TAG_TRAIN
+from .channels import BlockPlan, RoundContext, ServerUpdate, TAG_COHORT, TAG_TRAIN
 from .data import Dataset
 
 
@@ -80,6 +81,7 @@ class EngineSpec:
     downlink: Any
     aggregator: Any
     allocation: Any = None       # block-allocation strategy (MRC schemes)
+    participation: float = 1.0   # fraction of clients active per round
     name: str = ""
 
 
@@ -89,6 +91,31 @@ class FLEngine:
     def __init__(self, task, spec: EngineSpec):
         self.task = task
         self.spec = spec
+
+    @staticmethod
+    def cohort_schedule(rounds: int, n: int, n_active: int, seed: int,
+                        cohort_rng: str = "numpy") -> np.ndarray:
+        """The (rounds, n_active) table of each round's sorted cohort ids.
+
+        ``numpy`` consumes ``default_rng(seed + 17)``, one sorted draw
+        without replacement per round, in round order; ``jax`` derives
+        round t's cohort from the shared key, ``prng.choice(fold_in(
+        round_key(PRNGKey(seed), t), TAG_COHORT), n, (n_active,),
+        replace=False)``, sorted.  Both are the reference's, draw for draw.
+        The table is host data, computed on the CPU.
+        """
+        if cohort_rng not in ("numpy", "jax"):
+            raise ValueError(cohort_rng)
+        if n_active >= n:
+            return np.tile(np.arange(n, dtype=np.int64), (rounds, 1))
+        if cohort_rng == "numpy":
+            rng = np.random.default_rng(seed + 17)
+            return np.stack([np.sort(rng.choice(n, size=n_active, replace=False))
+                             for _ in range(rounds)])
+        base = prng.PRNGKey(seed, device="cpu")
+        kc = prng.fold_in(mrc.round_key(base, torch.arange(rounds)), TAG_COHORT)
+        return torch.sort(prng.choice(kc, n, (n_active,), replace=False),
+                          dim=-1).values.numpy()
 
     def run(self, shards: Dataset, theta0: Optional[torch.Tensor] = None, *,
             rounds: int, seed: int = 0, eval_every: int = 1, mode: str = "auto",
@@ -109,10 +136,7 @@ class FLEngine:
                                       "program) is not ported yet")
         if mode not in ("auto", "host"):
             raise ValueError(mode)
-        if cohort_rng == "jax":
-            raise NotImplementedError(
-                "cohort_rng='jax' (key-derived cohorts) is not ported yet")
-        if cohort_rng != "numpy":
+        if cohort_rng not in ("numpy", "jax"):
             raise ValueError(cohort_rng)
         for name, value in (("wire", wire), ("faults", faults),
                             ("checkpoint_dir", checkpoint_dir),
@@ -130,8 +154,8 @@ class FLEngine:
         theta_hat = theta[None].repeat(n, 1)
         meter = BitMeter(n_clients=n, d=d, broadcast_downlink_shareable=getattr(
             spec.downlink, "broadcast_shareable", True))
-        # The reference's cohort table with every client active.
-        schedule = np.tile(np.arange(n, dtype=np.int64), (rounds, 1))
+        n_active = max(1, int(round(spec.participation * n)))
+        schedule = self.cohort_schedule(rounds, n, n_active, seed, cohort_rng)
         up_s = spec.uplink.init_up_state(n, d)
         dn_s = spec.downlink.init_down_state(n, d)
         base = prng.PRNGKey(seed, device=device)
@@ -147,22 +171,29 @@ class FLEngine:
             t0 = sync()
             kt = mrc.round_key(base, t)
             active = schedule[t]
+            # Keys are split over all n clients, then the cohort's taken.
             train_keys = prng.split(prng.fold_in(kt, TAG_TRAIN), n)
-            payload = task.local_train(theta_hat, shards.x, shards.y, train_keys)
+            if n_active < n:
+                ids = torch.as_tensor(active, device=device)
+                priors, xs, ys, keys = (theta_hat[ids], shards.x[ids], shards.y[ids],
+                                        train_keys[ids])
+            else:
+                priors, xs, ys, keys = theta_hat, shards.x, shards.y, train_keys
+            payload = task.local_train(priors, xs, ys, keys)
             t1 = sync()
 
             plan = None
             if alloc is not None:
                 kl = None
                 if getattr(alloc, "needs_kl", True):
-                    kl = _kl_stats(payload, theta_hat, needs_profile=getattr(
+                    kl = _kl_stats(payload, priors, needs_profile=getattr(
                         alloc, "needs_profile", True)).cpu().numpy()
                 size, n_blocks, seg_ids, overhead = alloc.plan(kl, d)
                 plan = BlockPlan(size=size, n_blocks=n_blocks, seg_ids=seg_ids,
                                  overhead_bits=overhead)
             ctx = RoundContext(t=t, key=kt, n_clients=n, d=d, active=active,
                                plan=plan)
-            up_out, ul_bits, up_s = spec.uplink.step_up(ctx, up_s, payload, theta_hat)
+            up_out, ul_bits, up_s = spec.uplink.step_up(ctx, up_s, payload, priors)
             update = spec.aggregator(ctx, theta, up_out)
             res, dn_s = spec.downlink.step_down(ctx, dn_s, update, theta, theta_hat)
             theta, theta_hat = res.theta, res.theta_hat

@@ -28,6 +28,10 @@
 //     bit prng.uniform(prng.fold_in(key, i), (D,)) -- row key
 //     fold_in(key, i) once per row, then element e = uniform_at(row key, e)
 //     (common.cuh) -- so the (NIS, D) uniforms never reach device memory.
+//     The key is one (2,) key shared by the C clients (key_stride 0:
+//     BiCompFL-GR's common candidates, one draw serves the cohort) or one
+//     key per client, key[c] at key + 2 c (key_stride 2: the PR variants'
+//     private candidates, one draw per client).
 //     Pass 2 then adds the Gumbel noise of select_key[c] and takes the
 //     argmax; pass 3 re-thresholds the chosen rows into the sample.  These
 //     are core/mrc's whole segment encoder: draw, weights, Gumbel, argmax,
@@ -39,7 +43,8 @@
 // at 3.35 TB/s; memory-bound.  Keyed: ~3.5 MB of p, a, b, seg and outputs
 // (~1 us), but NIS * D = 1.8 M threefry draws of ~74 integer instructions
 // each (threefry2x32 and the float conversion) on 132 SMs x 64 INT32 lanes:
-// integer-bound, ~7 us at the card's clock.
+// integer-bound, ~8 us at the card's clock; with per-client keys C times
+// the draws, ~81 us.
 //
 // Design.
 //
@@ -48,7 +53,9 @@
 //     the strip of kStrip = 16 consecutive parameters [16 l, 16 l + 16).
 //     The thread gets its strip of u once, into registers (four float4,
 //     drawn or loaded), and then loops over the C clients: u is read or drawn once
-//     for the cohort, never once per client.  p and a of all clients of
+//     for the cohort, never once per client -- except under per-client
+//     keys, where the loop draws each client's strip from fold_in(key[c], i)
+//     before that client's sums.  p and a of all clients of
 //     the tile are staged in shared memory by cp.async (16-byte copies
 //     where aligned), strips padded to 20 floats so the float4 reads are
 //     free of bank conflicts; the first client's copies are one group, the
@@ -78,7 +85,8 @@
 //     argmax, the first maximal index winning as in torch.argmax.
 //   pass 3, select (keyed form, and the decoder): one thread per (c, e)
 //     takes row = idx[c, seg[e]] and regenerates that row's element only,
-//     uniform_at(fold_in(key, row), e), and writes (u < p[c, e]) as float.
+//     uniform_at(fold_in(key[c], row), e) (key[c] = key under the shared
+//     key), and writes (u < p[c, e]) as float.
 //
 // Every sum runs in a fixed order (no float atomics): a call is bitwise
 // deterministic.  Built without --use_fast_math: logf is the accurate one,
@@ -388,16 +396,17 @@ __device__ __forceinline__ UStrip strip_u(const float* __restrict__ u_in,
   return u;
 }
 
-// Pass 1.  kKeyed: u drawn from key; else read from u_in.  kVec: p, a (and
-// u, b) rows may be read 16 bytes at a time.  part: (C, NIS, n_pieces),
-// bpart: (C, n_pieces).  Grid (tiles, row groups of kWarps).
+// Pass 1.  kKeyed: u drawn from key (client c's from key + c * key_stride);
+// else read from u_in.  kVec: p, a (and u, b) rows may be read 16 bytes at a
+// time.  part: (C, NIS, n_pieces), bpart: (C, n_pieces).  Grid (tiles, row
+// groups of kWarps).
 template <bool kKeyed, bool kVec>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 seg_pass1(const float* __restrict__ u_in, const long long* __restrict__ key,
           const float* __restrict__ p, const float* __restrict__ a,
           const float* __restrict__ b, const int* __restrict__ seg,
           float* __restrict__ part, float* __restrict__ bpart, int clients, int nis,
-          int d, int n_seg, int n_pieces, int n_stage) {
+          int d, int n_seg, int n_pieces, int n_stage, int key_stride) {
   extern __shared__ float4 smem4[];
   float* sp = reinterpret_cast<float*>(smem4);
   float* sa = sp + n_stage * kPadTile;
@@ -427,7 +436,8 @@ seg_pass1(const float* __restrict__ u_in, const long long* __restrict__ key,
   const int row = blockIdx.y * kWarps + warp;
   const bool has_row = row < nis;   // uniform over the warp
   SelectVals sv;
-  sv.u = strip_u<kKeyed, kVec>(u_in, key, row, has_row, d, t0, st);  // while copies arrive
+  // Client 0's strip (every client's under a shared key), while copies arrive.
+  sv.u = strip_u<kKeyed, kVec>(u_in, key, row, has_row, d, t0, st);
   const int off = lane * kPadStrip;
   for (int c0 = 0; c0 < clients; c0 += n_stage) {
     if (c0 > 0) {
@@ -447,6 +457,10 @@ seg_pass1(const float* __restrict__ u_in, const long long* __restrict__ key,
       if (j == 1) {  // and the others'
         cp_async_wait<0>();
         __syncthreads();
+      }
+      if (kKeyed && key_stride != 0 && c0 + j > 0) {  // this client's own strip
+        sv.u = strip_u<kKeyed, kVec>(u_in, key + static_cast<size_t>(c0 + j) * key_stride,
+                                     row, has_row, d, t0, st);
       }
       if (has_row) {
         sv.sp = sp + j * kPadTile + off;
@@ -522,13 +536,13 @@ seg_pass2(const float* __restrict__ part, const float* __restrict__ bpart,
   }
 }
 
-// Pass 3: sample[c, e] = uniform_at(fold_in(key, idx[c, seg[e]]), e) < p[c, e]
-// (0 where seg[e] >= n_seg).
+// Pass 3: sample[c, e] = uniform_at(fold_in(key[c], idx[c, seg[e]]), e) < p[c, e]
+// (0 where seg[e] >= n_seg); key[c] is at key + c * key_stride.
 __global__ void __launch_bounds__(kThreads)
 seg_select(const long long* __restrict__ key, const long long* __restrict__ idx,
            const float* __restrict__ p, const int* __restrict__ seg,
-           float* __restrict__ sample, long long total, int d, int n_seg) {
-  const uint2 k = load_key(key);
+           float* __restrict__ sample, long long total, int d, int n_seg, int key_stride) {
+  const uint2 k0 = load_key(key);
   for (long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; t < total;
        t += static_cast<long long>(gridDim.x) * kThreads) {
     const long long c = t / d;
@@ -537,6 +551,7 @@ seg_select(const long long* __restrict__ key, const long long* __restrict__ idx,
     float x = 0.f;
     if (s < n_seg) {
       const uint32_t r = static_cast<uint32_t>(idx[c * n_seg + s]);
+      const uint2 k = key_stride ? load_key(key + c * key_stride) : k0;
       x = uniform_at(fold_in(k, r), static_cast<uint32_t>(e)) < p[t] ? 1.f : 0.f;
     }
     sample[t] = x;
@@ -549,7 +564,7 @@ template <bool kKeyed>
 cudaError_t launch_pass1(const float* u, const long long* key, const float* p,
                          const float* a, const float* b, const int* seg, float* part,
                          float* bpart, int clients, int nis, int d, int n_seg,
-                         int n_pieces, cudaStream_t st) {
+                         int n_pieces, int key_stride, cudaStream_t st) {
   const int n_stage = clients < kMaxStage ? clients : kMaxStage;
   const size_t smem = 2 * sizeof(float) * static_cast<size_t>(n_stage) * kPadTile;
   const bool vec = d % 4 == 0 && aligned16(p) && aligned16(a) && aligned16(b) &&
@@ -563,7 +578,7 @@ cudaError_t launch_pass1(const float* u, const long long* key, const float* p,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, smem, st>>>(u, key, p, a, b, seg, part, bpart, clients, nis, d,
-                                       n_seg, n_pieces, n_stage);
+                                       n_seg, n_pieces, n_stage, key_stride);
   return cudaGetLastError();
 }
 
@@ -593,7 +608,7 @@ extern "C" int segment_logw_launch(const void* u, const void* p, const void* a,
       static_cast<const float*>(u), nullptr, static_cast<const float*>(p),
       static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<const int*>(seg), static_cast<float*>(part), static_cast<float*>(bpart),
-      clients, nis, d, n_seg, n_pieces, st);
+      clients, nis, d, n_seg, n_pieces, 0, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   seg_pass2<false><<<blocks_for(static_cast<long long>(clients) * n_seg, kWarps), kThreads,
                      0, st>>>(
@@ -603,27 +618,32 @@ extern "C" int segment_logw_launch(const void* u, const void* p, const void* a,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Pass 3 alone (the decoder): sample (C, D) from idx (C, n_seg).
+// Pass 3 alone (the decoder): sample (C, D) from idx (C, n_seg); key is
+// one (2,) key (key_stride 0) or (C, 2), one per client (key_stride 2).
 extern "C" int segment_select_launch(const void* key, const void* idx, const void* p,
                                      const void* seg, void* sample, int clients, int d,
-                                     int n_seg, void* stream) {
+                                     int n_seg, int key_stride, void* stream) {
+  if (key_stride != 0 && key_stride != 2) return static_cast<int>(cudaErrorInvalidValue);
   const long long total = static_cast<long long>(clients) * d;
   if (total <= 0) return static_cast<int>(cudaGetLastError());
   seg_select<<<blocks_for(total, kThreads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const long long*>(key), static_cast<const long long*>(idx),
       static_cast<const float*>(p), static_cast<const int*>(seg),
-      static_cast<float*>(sample), total, d, n_seg);
+      static_cast<float*>(sample), total, d, n_seg, key_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Keyed form, the whole segment encoder: logW (C, NIS, n_seg), idx
-// (C, n_seg) int64 and sample (C, D) from shared_key (2,) and select_key
-// (C, 2) (int64 words), in three launches.
+// (C, n_seg) int64 and sample (C, D) from the candidate key -- (2,), shared
+// by the clients (key_stride 0), or (C, 2), one per client (key_stride 2)
+// -- and select_key (C, 2) (int64 words), in three launches.
 extern "C" int segment_mrc_encode_launch(const void* key, const void* select_key,
                                          const void* p, const void* a, const void* b,
                                          const void* seg, void* part, void* bpart,
                                          void* logw, void* idx, void* sample, int clients,
-                                         int nis, int d, int n_seg, void* stream) {
+                                         int nis, int d, int n_seg, int key_stride,
+                                         void* stream) {
+  if (key_stride != 0 && key_stride != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (clients <= 0 || nis <= 0 || n_seg <= 0 || d <= 0) {
     return static_cast<int>(cudaGetLastError());
   }
@@ -633,7 +653,7 @@ extern "C" int segment_mrc_encode_launch(const void* key, const void* select_key
       nullptr, static_cast<const long long*>(key), static_cast<const float*>(p),
       static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<const int*>(seg), static_cast<float*>(part), static_cast<float*>(bpart),
-      clients, nis, d, n_seg, n_pieces, st);
+      clients, nis, d, n_seg, n_pieces, key_stride, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   seg_pass2<true><<<blocks_for(static_cast<long long>(clients) * n_seg, kWarps), kThreads, 0,
                     st>>>(
@@ -643,7 +663,8 @@ extern "C" int segment_mrc_encode_launch(const void* key, const void* select_key
       n_pieces);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return segment_select_launch(key, idx, p, seg, sample, clients, d, n_seg, stream);
+  return segment_select_launch(key, idx, p, seg, sample, clients, d, n_seg, key_stride,
+                               stream);
 }
 
 extern "C" const char* segment_logw_error_string(int code) {

@@ -75,14 +75,15 @@ def segment_logw(u: torch.Tensor, p: torch.Tensor, a: torch.Tensor,
 def segment_mrc_encode(shared_key: torch.Tensor, select_key: torch.Tensor,
                        pc: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                        seg_ids: torch.Tensor, n_is: int, n_seg: int):
-    """The segment codec's whole encoder; shared_key (2,), select_key (C, 2)
-    (or (2,) with (D,) coefficients), pc/a/b (C, D), seg_ids (D,) non-decreasing
-    from 0 (int32 on the card) -> (indices (C, n_seg) int64, sample (C, D),
-    logw (C, n_is, n_seg)).
+    """The segment codec's whole encoder; shared_key (2,) or (C, 2),
+    select_key (C, 2) (or (2,) with (D,) coefficients), pc/a/b (C, D),
+    seg_ids (D,) non-decreasing from 0 (int32 on the card) -> (indices
+    (C, n_seg) int64, sample (C, D), logw (C, n_is, n_seg)).
 
-    Candidate row i is ``uniform(fold_in(shared_key, i), (D,))``.  On the
-    card the kernel draws it in place (three device launches, one count):
-    the (n_is, D) uniforms never reach memory.  ``core.mrc.encode_segments``
+    Candidate row i of client c is ``uniform(fold_in(key, i), (D,))``, key
+    the one shared key or client c's own (the PR variants' private
+    candidates).  On the card the kernel draws it in place (three device
+    launches, one count): the (n_is, D) uniforms never reach memory.  ``core.mrc.encode_segments``
     calls it when no ``seg_logw_fn`` is given.
     """
     return _route(segment_mrc_encode, _seg.segment_mrc_encode_ref,
@@ -93,8 +94,9 @@ def segment_mrc_encode(shared_key: torch.Tensor, select_key: torch.Tensor,
 def segment_select(shared_key: torch.Tensor, indices: torch.Tensor, pc: torch.Tensor,
                    seg_ids: torch.Tensor) -> torch.Tensor:
     """The segment decoder: the chosen candidate rows re-thresholded,
-    indices (N..., n_seg) int64 (int32 too on the CPU), pc (N..., D) ->
-    (N..., D); only the chosen rows' elements are drawn.  The card runs the
+    shared_key (2,) or (N..., 2), indices (N..., n_seg) int64 (int32 too on
+    the CPU), pc (N..., D) -> (N..., D); only the chosen rows' elements are
+    drawn.  The card runs the
     select pass of ``segment_mrc_encode``'s kernel."""
     return _route(segment_select, _seg.segment_select_ref, _seg.segment_select_cuda, pc,
                   shared_key, indices, pc, seg_ids)

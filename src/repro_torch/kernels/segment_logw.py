@@ -18,12 +18,15 @@ each segment as one contiguous run.  Three functions over it:
 * ``segment_mrc_encode`` (keyed): the whole segment encoder of
   ``core.mrc``.  Candidate row ``i`` is ``uniform(fold_in(shared_key, i),
   (D,))``, drawn in the kernel bit for bit as ``repro_torch.prng`` draws
-  it, so the ``(NIS, D)`` uniforms never reach memory; the kernel adds the
+  it, so the ``(NIS, D)`` uniforms never reach memory; ``shared_key`` is
+  one ``(2,)`` key for the C clients or ``(C, 2)``, one per client (the PR
+  variants' private candidates, drawn once per client); the kernel adds the
   Gumbel noise of ``select_key``, takes the argmax over the candidates and
   re-thresholds the chosen rows.  ``(indices (C, n_seg) int64, sample
   (C, D), logw (C, NIS, n_seg))``.
 * ``segment_select``: the chosen rows' re-threshold alone, the decoder:
-  ``sample[c, e] = uniform(fold_in(key, idx[c, seg[e]]), (D,))[e] < p[c, e]``.
+  ``sample[c, e] = uniform(fold_in(key[c], idx[c, seg[e]]), (D,))[e] < p[c, e]``
+  (``key[c] = key`` under one shared key).
 
 The ``*_ref`` functions are the plain PyTorch versions: the CPU routes of
 ``kernels.ops`` and the oracles the kernel is held against on the card.
@@ -65,16 +68,23 @@ def segment_mrc_encode_ref(shared_key: torch.Tensor, select_key: torch.Tensor,
     ``(n_is, d)`` candidates, weigh them with ``seg_logw_fn`` (the u-fed
     function), add the Gumbel noise, take the argmax and gather the chosen
     rows.  ``pc``, ``a``, ``b`` are ``(N..., d)`` and ``select_key``
-    ``(N..., 2)``; returns ``(indices (N..., n_seg), sample (N..., d),
-    logw (N..., n_is, n_seg))``."""
+    ``(N..., 2)``; ``shared_key`` is ``(2,)`` (one draw for the batch) or
+    ``(C, 2)`` with ``(C, d)`` coefficients (one draw, and one
+    ``seg_logw_fn`` call, per client).  Returns ``(indices (N..., n_seg),
+    sample (N..., d), logw (N..., n_is, n_seg))``."""
     d = pc.shape[-1]
-    u = segment_candidates(shared_key, n_is, d)                    # (n_is, d)
-    logw = seg_logw_fn(u, pc, a, b, seg_ids, n_seg)                # (N..., n_is, n_seg)
+    u = segment_candidates(shared_key, n_is, d)                    # (K..., n_is, d)
+    if shared_key.dim() == 1:
+        logw = seg_logw_fn(u, pc, a, b, seg_ids, n_seg)            # (N..., n_is, n_seg)
+    else:
+        logw = torch.stack([seg_logw_fn(u[c], pc[c], a[c], b[c], seg_ids, n_seg)
+                            for c in range(u.shape[0])])
     gu = prng.uniform(select_key, (n_is, n_seg))                   # (N..., n_is, n_seg)
     gumbel = -torch.log(-torch.log(torch.clamp(gu, 1e-12, 1.0 - 1e-12)))
     idx = torch.argmax(logw + gumbel, dim=-2)                      # (N..., n_seg)
     rows = idx[..., seg_ids.to(torch.int64)]                       # (N..., d)
-    u_sel = u[rows, torch.arange(d, device=u.device)]              # (N..., d)
+    u = u.expand(rows.shape[:-1] + u.shape[-2:])                     # (N..., n_is, d)
+    u_sel = torch.take_along_dim(u, rows[..., None, :], dim=-2)[..., 0, :]  # (N..., d)
     return idx, (u_sel < pc).to(torch.float32), logw
 
 
@@ -95,9 +105,9 @@ def _library() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.segment_logw_launch.argtypes = [vp] * 8 + [ci] * 4 + [vp]
     lib.segment_logw_launch.restype = ci
-    lib.segment_mrc_encode_launch.argtypes = [vp] * 11 + [ci] * 4 + [vp]
+    lib.segment_mrc_encode_launch.argtypes = [vp] * 11 + [ci] * 5 + [vp]
     lib.segment_mrc_encode_launch.restype = ci
-    lib.segment_select_launch.argtypes = [vp] * 5 + [ci] * 3 + [vp]
+    lib.segment_select_launch.argtypes = [vp] * 5 + [ci] * 4 + [vp]
     lib.segment_select_launch.restype = ci
     lib.segment_logw_pieces.argtypes = [ci, ci]
     lib.segment_logw_pieces.restype = ci
@@ -111,13 +121,16 @@ def _check_sizes(clients: int, nis: int, d: int, n_seg: int) -> None:
                          "out of range")
 
 
-def _check_key(name: str, key: torch.Tensor, shape: tuple, ref: torch.Tensor) -> None:
+def _check_key(name: str, key: torch.Tensor, shapes: tuple, ref: torch.Tensor) -> int:
+    """Check a key against the allowed ``shapes``; returns its stride in
+    int64 words between clients: 0 for one (2,) key, 2 for one per client."""
     if key.dtype != torch.int64:
         raise TypeError(f"{NAME}: {name} is {key.dtype}, expected int64 (uint32 words)")
-    if tuple(key.shape) != shape:
-        raise ValueError(f"{NAME}: {name} {tuple(key.shape)} must be {shape}")
+    if tuple(key.shape) not in shapes:
+        raise ValueError(f"{NAME}: {name} {tuple(key.shape)} must be one of {shapes}")
     if key.device != ref.device or not key.is_contiguous():
         raise ValueError(f"{NAME}: {name} must be contiguous on {ref.device}")
+    return 0 if key.dim() == 1 else 2
 
 
 def _coeffs(p: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> tuple:
@@ -164,14 +177,15 @@ def segment_mrc_encode_cuda(shared_key: torch.Tensor, select_key: torch.Tensor,
                             seg_ids: torch.Tensor, n_is: int, n_seg: int):
     """The keyed kernel (three launches) on the current stream; raises on
     bad input.  ``pc``, ``a``, ``b`` are ``(D,)`` or ``(C, D)`` and
-    ``select_key`` ``(2,)`` or ``(C, 2)`` to match; ``shared_key`` is ``(2,)``."""
+    ``select_key`` ``(2,)`` or ``(C, 2)`` to match; ``shared_key`` is
+    ``(2,)`` (shared by the clients) or ``select_key``'s shape (one per client)."""
     clients, d = _coeffs(pc, a, b)
     lead = pc.shape[:-1]
     if tuple(seg_ids.shape) != (d,):
         raise ValueError(f"{NAME}: seg_ids {tuple(seg_ids.shape)} must be (D,) = ({d},)")
     build.check_cuda_inputs(NAME, pc, p=pc, a=a, b=b, seg_ids=seg_ids)
-    _check_key("shared_key", shared_key, (2,), pc)
-    _check_key("select_key", select_key, tuple(lead) + (2,), pc)
+    stride = _check_key("shared_key", shared_key, ((2,), tuple(lead) + (2,)), pc)
+    _check_key("select_key", select_key, (tuple(lead) + (2,),), pc)
     nis, n_seg = int(n_is), int(n_seg)
     if nis <= 0 or d == 0:
         raise ValueError(f"{NAME}: n_is ({nis}) and D ({d}) must be positive")
@@ -186,7 +200,7 @@ def segment_mrc_encode_cuda(shared_key: torch.Tensor, select_key: torch.Tensor,
                       select_key.data_ptr(), pc.data_ptr(), a.data_ptr(), b.data_ptr(),
                       seg_ids.data_ptr(), part.data_ptr(), bpart.data_ptr(),
                       logw.data_ptr(), idx.data_ptr(), sample.data_ptr(), clients, nis, d,
-                      n_seg)
+                      n_seg, stride)
     build.check(NAME, lib, rc)
     return idx, sample, logw
 
@@ -194,14 +208,15 @@ def segment_mrc_encode_cuda(shared_key: torch.Tensor, select_key: torch.Tensor,
 def segment_select_cuda(shared_key: torch.Tensor, indices: torch.Tensor, pc: torch.Tensor,
                         seg_ids: torch.Tensor) -> torch.Tensor:
     """The select pass alone on the current stream: ``indices`` ``(N...,
-    n_seg)`` int64, ``pc`` ``(N..., D)`` -> ``(N..., D)``; raises on bad input."""
+    n_seg)`` int64, ``pc`` ``(N..., D)`` -> ``(N..., D)``; ``shared_key``
+    ``(2,)`` or ``(N..., 2)``, one per row; raises on bad input."""
     d = pc.shape[-1]
     lead = pc.shape[:-1]
     if pc.dim() < 1 or indices.shape[:-1] != lead or tuple(seg_ids.shape) != (d,):
         raise ValueError(f"{NAME}: indices {tuple(indices.shape)}, p {tuple(pc.shape)} "
                          f"and seg_ids {tuple(seg_ids.shape)} do not match")
     build.check_cuda_inputs(NAME, pc, p=pc, seg_ids=seg_ids)
-    _check_key("shared_key", shared_key, (2,), pc)
+    stride = _check_key("shared_key", shared_key, ((2,), tuple(lead) + (2,)), pc)
     if indices.dtype != torch.int64 or indices.device != pc.device \
             or not indices.is_contiguous():
         raise ValueError(f"{NAME}: indices must be contiguous int64 on {pc.device}")
@@ -212,6 +227,6 @@ def segment_select_cuda(shared_key: torch.Tensor, indices: torch.Tensor, pc: tor
     sample = torch.empty(pc.shape, dtype=torch.float32, device=pc.device)
     rc = build.launch(pc.device, lib.segment_select_launch, shared_key.data_ptr(),
                       indices.data_ptr(), pc.data_ptr(), seg_ids.data_ptr(),
-                      sample.data_ptr(), clients, d, n_seg)
+                      sample.data_ptr(), clients, d, n_seg, stride)
     build.check(NAME, lib, rc)
     return sample

@@ -187,6 +187,41 @@ def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int) -> torch.
     return torch.where(out >= 2 ** 31, out - 2 ** 32, out)  # int32 wrap
 
 
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: a shuffle of ``arange(n)`` (int64).
+
+    jax's ``_shuffle``: ``ceil(3 ln n / ln(2**32 - 1))`` rounds, each of
+    which splits the key, draws 32 random bits per element and sorts the
+    elements by them, stably.  Batched over the key's leading axes:
+    ``(K..., 2)`` -> ``(K..., n)``.
+    """
+    n = int(n)
+    x = torch.arange(n, dtype=torch.int64, device=key.device).expand(key.shape[:-1] + (n,))
+    for _ in range(math.ceil(3 * math.log(max(1, n)) / math.log(MASK32))):
+        ks = split(key, 2)
+        key, sub = ks[..., 0, :], ks[..., 1, :]
+        order = torch.sort(random_bits(sub, (n,)), dim=-1, stable=True).indices
+        x = torch.take_along_dim(x, order, dim=-1)
+    return x
+
+
+def choice(key: torch.Tensor, n: int, shape: Shape = (), replace: bool = True) -> torch.Tensor:
+    """``jax.random.choice(key, n, shape, replace)`` from ``arange(n)``, uniform
+    (no ``p``), as int64; batched: ``(K..., 2)`` -> ``(K..., *shape)``.
+
+    Without replacement it is the first ``prod(shape)`` entries of
+    ``permutation(key, n)``, as in jax; with replacement ``randint``.
+    """
+    shape = _shape(shape)
+    k = math.prod(shape)
+    if replace:
+        return randint(key, shape, 0, n)
+    if k > n:
+        raise ValueError(f"Cannot take a larger sample (size {k}) than population "
+                         f"(size {n}) when 'replace=False'")
+    return permutation(key, n)[..., :k].reshape(key.shape[:-1] + shape)
+
+
 def normal(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
     """``jax.random.normal`` in float32: ``sqrt(2) * erfinv(u)``.
 

@@ -337,11 +337,32 @@ def test_validate_seg_ids_refuses_what_the_reference_refuses(bad):
 
 
 def test_encode_segments_takes_one_shared_key():
-    """GR's candidates come from one key; per-client keys are refused."""
+    """GR's candidates come from one key (2,); the PR variants' per-client
+    keys (C, 2) are taken too, and equal the reference's vmap over clients
+    with a key each (near-ties counted as above)."""
     q, p, seg, n_seg = _seg_codec_inputs(9, 60, n_clients=2)
-    keys = prng.split(prng.PRNGKey(0, device="cpu"), 2)
-    with pytest.raises(ValueError, match="one key"):
-        tm.encode_segments(keys, keys, torch.tensor(q), torch.tensor(p), seg,
+    k = jax.random.PRNGKey(0)
+    keys = jax.random.split(k, 2)
+    sels = jax.random.split(jax.random.fold_in(k, 1), 2)
+    r = jax.vmap(lambda k_, s_, q_, p_: jm.encode_segments(
+        k_, s_, q_, p_, jnp.asarray(seg), n_is=4, n_seg=n_seg))(
+        keys, sels, jnp.asarray(q), jnp.asarray(p))
+    t = tm.encode_segments(convert.key(keys, "cpu"), convert.key(sels, "cpu"),
+                           torch.tensor(q), torch.tensor(p), seg, n_is=4, n_seg=n_seg)
+    ji, ti = np.asarray(r.indices), t.indices.numpy()
+    for c in range(2):
+        diff = ji[c] != ti[c]
+        if diff.any():
+            gap = _near_tie_gap(keys[c], sels[c], q[c], p[c], seg, n_seg, 4)
+            assert (gap[diff] < NEAR_TIE).all(), gap[diff]
+        same = ~diff[seg]
+        np.testing.assert_array_equal(t.sample.numpy()[c][same], np.asarray(r.sample)[c][same])
+    shared = tm.encode_segments(convert.key(k, "cpu"), convert.key(sels, "cpu"),
+                                torch.tensor(q), torch.tensor(p), seg, n_is=4, n_seg=n_seg)
+    assert shared.indices.shape == t.indices.shape == (2, n_seg)
+    with pytest.raises(RuntimeError):          # a key per element, not per some other axis
+        tm.encode_segments(convert.key(jax.random.split(k, 3), "cpu"),
+                           convert.key(sels, "cpu"), torch.tensor(q), torch.tensor(p), seg,
                            n_is=4, n_seg=n_seg)
 
 

@@ -341,8 +341,8 @@ def test_fused_wrappers_refuse_bad_input(cuda):
     key, sels, pc, a, b, seg, n_seg = _encode_inputs(cuda, 2, 8, 64, "random", 6)
     with pytest.raises(TypeError):
         sl.segment_mrc_encode_cuda(key.int(), sels, pc, a, b, seg, 8, n_seg)
-    with pytest.raises(ValueError):
-        sl.segment_mrc_encode_cuda(sels, sels, pc, a, b, seg, 8, n_seg)      # key shape
+    with pytest.raises(ValueError):                                     # key shape
+        sl.segment_mrc_encode_cuda(prng.split(key, 3), sels, pc, a, b, seg, 8, n_seg)
     with pytest.raises(ValueError):
         sl.segment_mrc_encode_cuda(key, sels[:1], pc, a, b, seg, 8, n_seg)  # one key short
     with pytest.raises(TypeError):
@@ -352,6 +352,100 @@ def test_fused_wrappers_refuse_bad_input(cuda):
     with pytest.raises(ValueError):
         sl.segment_select_cuda(key, torch.zeros(2, n_seg, dtype=torch.int32, device=cuda),
                                pc, seg)
+
+
+# ---------------------------------------------------------------------------
+# The keyed encoder under per-client keys (the PR variants' private candidates).
+# ---------------------------------------------------------------------------
+
+CLIENT_KEY_CASES = [(10, 64, 28160, "random"), (1, 64, 28160, "random"),
+                    (3, 33, 1001, "skipping"), (4, 16, 513, "single"),
+                    (2, 8, 515, "singletons"), (17, 40, 3000, "random"), (1, 1, 7, "single")]
+
+
+def _client_keys(key, clients):
+    return mrc.client_key(key, torch.arange(clients, device=key.device))
+
+
+@pytest.mark.parametrize("clients,nis,d,kind", CLIENT_KEY_CASES)
+def test_client_keyed_and_u_fed_kernels_give_identical_logw(cuda, clients, nis, d, kind):
+    """(C, 2) keys: client c's logW is bit-identical to the u-fed kernel fed
+    prng's draw of key[c]; at D not a multiple of 4, one segment, a segment
+    per parameter and C = 1 too."""
+    key, sels, pc, a, b, seg, n_seg = _encode_inputs(cuda, clients, nis, d, kind, d + nis)
+    keys = _client_keys(key, clients)
+    _, _, logw = sl.segment_mrc_encode_cuda(keys, sels, pc, a, b, seg, nis, n_seg)
+    fed = torch.stack([segment_logw_cuda(sl.segment_candidates(keys[c], nis, d), pc[c],
+                                         a[c], b[c], seg, n_seg) for c in range(clients)])
+    torch.cuda.synchronize()
+    assert torch.equal(logw, fed)
+
+
+@pytest.mark.parametrize("clients,nis,d,kind", CLIENT_KEY_CASES)
+def test_client_keyed_encode_matches_plain_on_the_card(cuda, clients, nis, d, kind):
+    """Indices equal the plain route's but at near-ties (counted, each below
+    1e-4), the sample exact where they agree, and the select pass under the
+    same (C, 2) keys returns the sample."""
+    key, sels, pc, a, b, seg, n_seg = _encode_inputs(cuda, clients, nis, d, kind, d + 9)
+    keys = _client_keys(key, clients)
+    idx, sample, logw = sl.segment_mrc_encode_cuda(keys, sels, pc, a, b, seg, nis, n_seg)
+    w_idx, w_sample, w_logw = sl.segment_mrc_encode_ref(keys, sels, pc, a, b, seg.long(), nis,
+                                                        n_seg)
+    mag = segment_logw_ref(torch.zeros(nis, d, device=cuda), torch.ones_like(pc), a.abs(),
+                           b.abs(), seg.long(), n_seg)
+    _assert_sums_close(logw, w_logw, mag)
+    gu = prng.uniform(sels, (nis, n_seg))
+    score = torch.sort(w_logw - torch.log(-torch.log(torch.clamp(gu, 1e-12, 1 - 1e-12))),
+                       dim=1).values
+    gap = (score[:, -1] - score[:, -2]) if nis > 1 else torch.full_like(score[:, 0], 1e9)
+    diff = idx != w_idx
+    print(f"client-keyed encode {clients}x{nis}x{d} {kind}: {int(diff.sum())} near-tie "
+          f"index mismatches of {diff.numel()}")
+    assert bool((gap[diff] < 1e-4).all())
+    keep = ~diff[:, seg.long()]
+    assert torch.equal(sample[keep], w_sample[keep])
+    assert torch.equal(sl.segment_select_cuda(keys, idx, pc, seg), sample)
+    assert torch.equal(sl.segment_select_ref(keys, idx, pc, seg.long()), sample)
+
+
+def test_shared_key_results_do_not_change_with_the_stride(cuda):
+    """The shared key (stride 0) and the same key repeated per client
+    (stride 2) give bit-identical logW, indices and samples."""
+    key, sels, pc, a, b, seg, n_seg = _encode_inputs(cuda, 10, 64, 28160, "random", 11)
+    shared = sl.segment_mrc_encode_cuda(key, sels, pc, a, b, seg, 64, n_seg)
+    repeated = sl.segment_mrc_encode_cuda(key.expand(10, 2).contiguous(), sels, pc, a, b, seg,
+                                          64, n_seg)
+    assert all(torch.equal(x, y) for x, y in zip(shared, repeated))
+    other = sl.segment_mrc_encode_cuda(_client_keys(key, 10), sels, pc, a, b, seg, 64, n_seg)
+    assert not torch.equal(other[2], shared[2])
+
+
+def test_client_keyed_wrappers_refuse_wrong_key_shapes(cuda):
+    key, sels, pc, a, b, seg, n_seg = _encode_inputs(cuda, 3, 8, 64, "random", 12)
+    keys = _client_keys(key, 3)
+    idx = torch.zeros(3, n_seg, dtype=torch.int64, device=cuda)
+    for bad in (keys[:2], keys[None], keys[:, :1].contiguous(), keys.t().contiguous()[:, :2],
+                keys.int(), keys.cpu()):
+        with pytest.raises((ValueError, TypeError)):
+            sl.segment_mrc_encode_cuda(bad, sels, pc, a, b, seg, 8, n_seg)
+        with pytest.raises((ValueError, TypeError)):
+            sl.segment_select_cuda(bad, idx, pc, seg)
+    with pytest.raises(ValueError):                     # not contiguous
+        sl.segment_select_cuda(torch.stack([keys[:, 0], keys[:, 1]], 1).t().contiguous().t(),
+                               idx, pc, seg)
+    assert sl.segment_select_cuda(keys, idx, pc, seg).shape == pc.shape
+
+
+def test_ops_client_keyed_encode_counts_one_launch(cuda):
+    key, sels, pc, a, b, seg, n_seg = _encode_inputs(cuda, 4, 16, 600, "random", 13)
+    keys = _client_keys(key, 4)
+    before = ops.segment_mrc_encode.launches
+    res = mrc.encode_segments(keys, sels, pc, pc, seg.cpu().numpy(), n_is=16, n_seg=n_seg)
+    assert ops.segment_mrc_encode.launches == before + 1
+    before = ops.segment_select.launches
+    dec = mrc.decode_segments(keys, res.indices, pc, seg.cpu().numpy(), n_is=16)
+    assert ops.segment_select.launches == before + 1
+    assert torch.equal(dec, res.sample)
 
 
 # ---------------------------------------------------------------------------

@@ -239,9 +239,8 @@ def test_engine_run_matches_reference(ref):
 
 
 def test_registry_and_engine_refuse_what_is_not_ported(ref):
-    for variant in ("PR", "GR-Reconst", "PR-SplitDL"):
-        with pytest.raises(NotImplementedError):
-            t_spec(variant, allocation=TFixed(BLOCK))
+    for variant in ("PR", "GR-Reconst", "PR-SplitDL"):       # ported since
+        assert t_spec(variant, allocation=TFixed(BLOCK)).name == f"BiCompFL-{variant}"
     for alloc in (TAdaptive(n_is=N_IS), TAdaptiveAvg(n_is=N_IS)):   # ported since
         assert t_spec("GR", allocation=alloc, n_is=N_IS).allocation is alloc
     with pytest.raises(ValueError):
@@ -251,10 +250,13 @@ def test_registry_and_engine_refuse_what_is_not_ported(ref):
     eng = TEngine(_port_task(ref), t_spec("GR", allocation=TFixed(BLOCK), n_is=N_IS))
     shards = _port_shards(ref)
     for kw in ({"mode": "fused"}, {"wire": "audit"}, {"faults": object()},
-               {"checkpoint_dir": "ckpt"}, {"resume_from": "ckpt"},
-               {"cohort_rng": "jax"}):
+               {"checkpoint_dir": "ckpt"}, {"resume_from": "ckpt"}):
         with pytest.raises(NotImplementedError):
             eng.run(shards, rounds=1, **kw)
+    out = eng.run(shards, rounds=1, cohort_rng="jax")      # ported since
+    np.testing.assert_array_equal(out["active_schedule"], [np.arange(N_CLIENTS)])
+    with pytest.raises(ValueError):
+        eng.run(shards, rounds=1, cohort_rng="torch")
 
 
 def test_cuda_entry_points_refuse_without_a_card():
