@@ -37,16 +37,26 @@ Phases (each one fails the run with a non-zero exit; nothing is swallowed):
    GR-Reconst (fixed), PR (fixed), PR (adaptive), PR-SplitDL (fixed), and
    PR at participation 0.5 (fixed, ``cohort_rng="jax"``, through
    ``FLEngine``), with launches, booked bits and cohorts asserted and the
-   peak device memory logged;
+   peak device memory logged; then conventional FL at
+   ``examples/cfl_gradient_compression.py``'s full width (a dense MLP
+   100->256->10, d = 28160, 10 clients), 3 rounds each:
+   BiCompFL-GR-CFL through ``fl.federator.run_bicompfl_cfl`` (one
+   ``mrc_logw`` launch a round, asserted, with the reference's bits and
+   bpp), ``mrc_logw`` at that path's shape (17600, 256, 16) with its device
+   time, and the seven baselines through ``fl.baselines.run_baseline`` (the
+   reference's bits; CSER and LIEC flush after round 2; no kernel launch);
 5. check the card's codecs and KL statistics against the port's CPU routes
    on the same inputs (the CPU routes are tied to the JAX reference by the
    CPU tests); then one round of each variant channel's indices, card
-   against CPU, on the round-0 inputs;
+   against CPU, on the round-0 inputs; one BiCompFL-GR-CFL round from the
+   same state on the card and on the CPU (indices and bits), and one
+   doublesqueeze round's EF states on the same inputs;
 6. profile steady rounds of each path with ``torch.profiler``: device time
    by kernel, kernels per round, and the device's idle share of an
    unprofiled steady round; the adaptive path also on the unfused segment
    route (``seg_logw_fn=ops.segment_logw``), as the before to its after;
-   the five variant paths too; each with its peak device memory;
+   the five variant paths and the CFL path too; each with its peak device
+   memory;
 7. hold the model substrate's kernels (``ops.flash_attention``,
    ``ops.rwkv_time_mix``) against their plain versions at the serving
    path's full-width shapes -- attention of Qwen3-1.7B at (2, 4096, 16 heads,
@@ -91,16 +101,19 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch import prng, quickstart  # noqa: E402
+from repro_torch import cfl_gradient_compression, convert, prng, quickstart  # noqa: E402
 from repro_torch.core import mrc  # noqa: E402
 from repro_torch.core.bernoulli import clip01, log_ratio_coeffs  # noqa: E402
 from repro_torch.core.blocks import AdaptiveAllocation, AdaptiveAvgAllocation  # noqa: E402
 from repro_torch.core.blocks import BlockPlan, FixedAllocation  # noqa: E402
 from repro_torch.fl import channels  # noqa: E402
+from repro_torch.fl.baselines import BaselineConfig, run_baseline  # noqa: E402
 from repro_torch.fl.channels import TAG_TRAIN  # noqa: E402
-from repro_torch.fl.engine import FLEngine, _kl_stats  # noqa: E402
-from repro_torch.fl.federator import BiCompFLConfig, run_bicompfl  # noqa: E402
-from repro_torch.fl.registry import bicompfl_spec  # noqa: E402
+from repro_torch.fl.data import Dataset  # noqa: E402
+from repro_torch.fl.engine import FLEngine, MeanDeltaAggregator, _kl_stats  # noqa: E402
+from repro_torch.fl.federator import (BiCompFLConfig, CFLConfig, run_bicompfl,  # noqa: E402
+                                      run_bicompfl_cfl)
+from repro_torch.fl.registry import ALL_BASELINES, bicompfl_spec, cfl_spec  # noqa: E402
 from repro_torch.kernels import bernoulli_kl, build, mrc_weights, ops  # noqa: E402
 from repro_torch.kernels import flash_attn, rwkv_chunk  # noqa: E402
 from repro_torch.kernels import segment_logw as seg_kernel  # noqa: E402
@@ -168,6 +181,30 @@ VARIANT_ROUNDS, N_DL = 3, 10
 # The reference's cohorts (repro.fl.engine.FLEngine.cohort_schedule(3, 10, 5,
 # seed 0, "jax"), computed with jax 0.9): what the card's run must draw.
 JAX_COHORTS = [[0, 2, 4, 5, 9], [2, 5, 6, 8, 9], [0, 5, 6, 8, 9]]
+# BiCompFL-GR-CFL and the baselines at examples/cfl_gradient_compression.py's
+# configuration (10 clients, MLP 100->256->10, d = 28160; CFLConfig's
+# n_is 256 and blocks of 16), 3 rounds each; CSER and LIEC sync every
+# BASELINE_PERIOD rounds, so that a flush falls inside the run.
+CFL_ROUNDS, BASELINE_PERIOD = 3, 2
+CFL_LOGW_SHAPE = (10 * 1760, 256, 16)   # one round's mrc_logw call: (n * B, n_is, S)
+# The reference's booked bits, cumulative per round, for the same runs
+# (repro.fl: run_bicompfl_cfl and run_baseline with these settings, on the
+# CPU), and the CFL run's bpp as the example prints them to 6 places.
+CFL_REF_BITS = [1411200.0, 2822400.0, 4233600.0]
+CFL_REF_BPP = {"bpp": "5.011364", "uplink_bpp": "0.501136", "downlink_bpp": "4.510227",
+               "bpp_bc": "0.952159"}
+BASELINE_REF_BITS = {"fedavg": [18022400.0, 36044800.0, 54067200.0],
+                     "memsgd": [9293120.0, 18586240.0, 27879360.0],
+                     "doublesqueeze": [563840.0, 1127680.0, 1691520.0],
+                     "neolithic": [1127680.0, 2255360.0, 3383040.0],
+                     "cser": [9293120.0, 36608640.0, 45901760.0],
+                     "liec": [563840.0, 19150080.0, 19713920.0],
+                     "m3": [2224640.0, 4449280.0, 6673920.0]}
+# Sign error feedback, card vs CPU on the same inputs: the scale mean|v|
+# sums 28160 terms in two orders, so the compressed vectors and EF states
+# agree to a few ulp of the scale; a sign may differ only within
+# SIGN_MARGIN scales of zero.
+EF_RTOL, SIGN_MARGIN = 2e-6, 1e-5
 
 
 def log(msg: str) -> None:
@@ -288,8 +325,9 @@ def logw_inputs(nb: int, nis: int, s: int, seed: int):
     return x.contiguous(), a.contiguous(), b.contiguous()
 
 
-def check_mrc_logw(shape, seed, timed=True):
-    """Kernel (through ``ops.mrc_logw``) vs plain version on one shape."""
+def check_mrc_logw(shape, seed, timed=True, device=False):
+    """Kernel (through ``ops.mrc_logw``) vs plain version on one shape;
+    ``device`` adds its device time and device kernels per call."""
     x, a, b = logw_inputs(*shape, seed)
     got = launched_once(ops.mrc_logw, x, a, b)
     want = mrc_weights.mrc_logw_ref(x, a, b)
@@ -304,11 +342,18 @@ def check_mrc_logw(shape, seed, timed=True):
     bsum = b.sum(-1)[:, None, None]
     a3 = a[:, :, None]
     nb, nis, s = shape
-    return timed_row("mrc_logw", shape, err.max().item(), lambda: ops.mrc_logw(x, a, b),
-                     lambda: mrc_weights.mrc_logw_ref(x, a, b),
-                     lambda: torch.baddbmm(bsum, x, a3),
-                     4 * (x.numel() + a.numel() + b.numel() + nb * nis),
-                     2 * x.numel() + b.numel())
+    row = timed_row("mrc_logw", shape, err.max().item(), lambda: ops.mrc_logw(x, a, b),
+                    lambda: mrc_weights.mrc_logw_ref(x, a, b),
+                    lambda: torch.baddbmm(bsum, x, a3),
+                    4 * (x.numel() + a.numel() + b.numel() + nb * nis),
+                    2 * x.numel() + b.numel())
+    if device:
+        dev_ms, per_call = device_per_call(lambda: ops.mrc_logw(x, a, b))
+        row.update(device_ms=dev_ms, device_kernels_per_call=per_call)
+        log(f"mrc_logw {tuple(shape)}: device {dev_ms:.4f} ms and {per_call:.2f} device "
+            f"kernels per call (torch.profiler, 50 calls); {row['ms'] / row['bound_ms']:.2f}x "
+            f"its bound; baddbmm takes {row['library_ms'] / row['ms']:.2f}x its time")
+    return row
 
 
 def round0_inputs():
@@ -773,6 +818,81 @@ def check_variant(label, launches, plans, out, rounds=VARIANT_ROUNDS):
         f"cohorts {sched.tolist() if n_act < n else 'all'}")
 
 
+def run_cfl(rounds=CFL_ROUNDS):
+    """BiCompFL-GR-CFL at the example's full width through
+    ``run_bicompfl_cfl``, launch counts set to 0 just before and read just
+    after, peak device memory from a reset just before.  Returns
+    (launches, out, peak bytes)."""
+    task, theta0, shards = cfl_gradient_compression.build("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run_bicompfl_cfl(task, theta0, shards, CFLConfig(rounds=rounds, seed=0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    ph = out["phase_seconds"]
+    log(f"path BiCompFL-GR-CFL: {rounds} rounds in {wall:.3f} s; launches {launches}; accuracy "
+        f"{[round(h['acc'], 4) for h in out['history']]}; peak device memory "
+        f"{peak / 2**20:.1f} MiB; rounds 2-{rounds} mean: " + ", ".join(
+            f"{k} {1e3 * sum(v[1:]) / len(v[1:]):.3f} ms" for k, v in ph.items())
+        + " (host clock, synchronised at phase ends)")
+    return launches, out, peak
+
+
+def check_cfl(launches, out, rounds=CFL_ROUNDS):
+    """One ``mrc_logw`` launch a round and nothing else; the reference's
+    bits and bpp; a finite model that every client tracks."""
+    expect = {k: 0 for k in KERNELS}
+    expect["mrc_logw"] = rounds
+    theta, th = out["theta"], out["theta_hat"]
+    if theta.shape != (28160,) or launches != expect:
+        raise AssertionError(f"CFL: d {tuple(theta.shape)}, launches {launches}, "
+                             f"expected {expect}")
+    got = [h["cum_bits"] for h in out["history"]]
+    bpp = {k: f"{out['meter'][k]:.6f}" for k in CFL_REF_BPP}
+    if got != CFL_REF_BITS[:rounds] or (rounds == 3 and bpp != CFL_REF_BPP):
+        raise AssertionError(f"CFL: booked bits {got}, bpp {bpp}; the reference's "
+                             f"{CFL_REF_BITS[:rounds]}, {CFL_REF_BPP}")
+    if not bool(torch.isfinite(theta).all()) or not bool((th == theta[None]).all()) \
+            or not all(math.isfinite(h["acc"]) for h in out["history"]):
+        raise AssertionError("CFL: theta not finite, or the clients do not track it")
+    log(f"  booked bits {got} and bpp {bpp}: the reference's")
+
+
+def phase_baselines(rounds=CFL_ROUNDS):
+    """The seven baselines at the example's width through ``run_baseline``,
+    3 rounds each (CSER and LIEC flush after round 2): the reference's bits,
+    a finite model, and no kernel launch (no baseline reaches one).
+    Returns ``{label: (launches, None, out)}``."""
+    task, theta0, shards = cfl_gradient_compression.build("cuda")
+    runs = {}
+    for scheme in ALL_BASELINES:
+        reset_counts()
+        t0 = time.perf_counter()
+        out = run_baseline(task, theta0, shards, BaselineConfig(
+            scheme=scheme, rounds=rounds, seed=0, reset_period=BASELINE_PERIOD))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        got = [h["cum_bits"] for h in out["history"]]
+        if any(launches.values()):
+            raise AssertionError(f"baseline {scheme}: kernel launches {launches}")
+        if got != BASELINE_REF_BITS[scheme][:rounds]:
+            raise AssertionError(f"baseline {scheme}: booked bits {got}, the reference's "
+                                 f"{BASELINE_REF_BITS[scheme][:rounds]}")
+        if not bool(torch.isfinite(out["theta"]).all() and torch.isfinite(out["theta_hat"]).all()) \
+                or out["theta_hat"].shape != (10, 28160):
+            raise AssertionError(f"baseline {scheme}: model not finite or of the wrong shape")
+        log(f"baseline {scheme}: {rounds} rounds in {wall:.3f} s; bits {got} (the reference's); "
+            f"bpp {out['meter']['bpp']:.6f}; accuracy "
+            f"{[round(h['acc'], 4) for h in out['history']]}; no kernel launched")
+        runs[f"baseline {scheme}"] = (launches, None, out)
+    return runs
+
+
 # ---------------------------------------------------------------------------
 # Phase 5: card vs CPU on the same inputs.
 # ---------------------------------------------------------------------------
@@ -880,6 +1000,88 @@ def phase_variants_vs_cpu(payload, priors, kt, seg, n_seg):
             raise AssertionError(f"{label}: card/cpu index match {rate} < {MIN_INDEX_MATCH}")
 
 
+class RecordingCFLUplink(channels.QuantizedMRCUplink):
+    """The CFL uplink, keeping each round's indices, temperatures and deltas."""
+
+    def step_up(self, ctx, state, payload, priors):
+        idxs, ks, g_hat, bits = self._transmit(ctx, payload, priors)
+        self.log.append((idxs.cpu(), ks.cpu(), payload.cpu()))
+        return g_hat, bits, state
+
+
+def phase_cfl_vs_cpu():
+    """One BiCompFL-GR-CFL round at full width from the same state (the
+    card's task, theta0 and shards carried to the CPU value for value), on
+    the card and on the CPU: indices equal but for Gumbel near-ties
+    (MIN_INDEX_MATCH, as the variant checks count them), equal bits.
+    Returns the card's round-0 deltas."""
+    task, theta0, shards = cfl_gradient_compression.build("cuda")
+    ctask, ctheta0 = convert.cfl_task(
+        theta0.cpu(), task.x_test.cpu(), task.y_test.cpu(), dims=task.net.dims, device="cpu",
+        local_epochs=task.local_epochs, batch_size=task.batch_size, local_lr=task.local_lr)
+    runs = {}
+    for dev, (tk, th, sh) in (("cuda", (task, theta0, shards)),
+                              ("cpu", (ctask, ctheta0, Dataset(shards.x.cpu(),
+                                                               shards.y.cpu())))):
+        spec = cfl_spec()
+        spec.uplink = RecordingCFLUplink(n_is=spec.uplink.n_is)
+        spec.uplink.log = []
+        out = FLEngine(tk, spec).run(sh, th, rounds=1, seed=0)
+        runs[dev] = (spec.uplink.log[0], out)
+    (gi, gk, gp), gout = runs["cuda"]
+    (ci, ck, cp), cout = runs["cpu"]
+    same = gi == ci
+    rate = float(same.to(torch.float32).mean())
+    dk = float(((gk - ck).abs() / ck).max())
+    dp = float((gp - cp).abs().max())
+    dth = float((gout["theta"].cpu() - cout["theta"]).abs().max())
+    log(f"CFL round card vs cpu: index match {rate:.5f} over {same.numel()} blocks; deltas "
+        f"max|diff| {dp:.3e}; K max relative diff {dk:.3e}; theta max|diff| {dth:.3e}; "
+        f"bits {gout['meter']['total_bits']:.0f} vs {cout['meter']['total_bits']:.0f}")
+    if gi.shape != ci.shape or rate < MIN_INDEX_MATCH or gout["meter"] != cout["meter"]:
+        raise AssertionError(f"CFL card vs cpu: index match {rate} < {MIN_INDEX_MATCH} or "
+                             f"meters differ: {gout['meter']} vs {cout['meter']}")
+    return gp.cuda()
+
+
+def phase_ef_vs_cpu(deltas):
+    """One doublesqueeze round on the same inputs (the card's CFL deltas of
+    round 0 as the payload, zero EF memories), card vs CPU: uplink, the
+    mean-delta aggregate, downlink.  Outputs, the EF states and the models
+    agree within EF_RTOL of the scale, signs outside SIGN_MARGIN."""
+    n, d = deltas.shape
+    theta = prng.normal(prng.PRNGKey(21, device="cuda"), (d,)) * 0.1
+    res = {}
+    for dev in ("cuda", "cpu"):
+        ctx = channels.RoundContext(t=0, key=prng.PRNGKey(0, device=dev), n_clients=n, d=d,
+                                    active=np.arange(n))
+        up, dn = channels.SignEFChannel(), channels.SignEFChannel()
+        th = theta.to(dev)
+        c, bits_up, e_up = up.step_up(ctx, up.init_up_state(n, d, dev), deltas.to(dev), None)
+        update = MeanDeltaAggregator(1.0)(ctx, th, c)
+        out, e_dn = dn.step_down(ctx, dn.init_down_state(n, d, dev), update, th,
+                                 th[None].repeat(n, 1))
+        res[dev] = {"uplink output": c, "uplink state": e_up, "downlink state": e_dn,
+                    "theta": out.theta, "theta_hat": out.theta_hat,
+                    "bits": (bits_up, out.bits)}
+    worst = {}
+    for key in ("uplink output", "uplink state", "downlink state", "theta", "theta_hat"):
+        got, want = res["cuda"][key].cpu(), res["cpu"][key]
+        scale = float(res["cpu"]["uplink output"].abs().max())
+        err = float((got - want).abs().max())
+        worst[key] = err / scale
+        if err > EF_RTOL * scale:
+            raise AssertionError(f"doublesqueeze card vs cpu: {key} max|diff| {err} beyond "
+                                 f"{EF_RTOL} x scale {scale}")
+    c_card, c_cpu = res["cuda"]["uplink output"].cpu(), res["cpu"]["uplink output"]
+    sure = c_cpu.abs() > SIGN_MARGIN * c_cpu.abs().amax(-1, keepdim=True)
+    if not torch.equal(torch.sign(c_card)[sure], torch.sign(c_cpu)[sure]) \
+            or res["cuda"]["bits"] != res["cpu"]["bits"]:
+        raise AssertionError("doublesqueeze card vs cpu: signs or bits differ")
+    log("doublesqueeze round card vs cpu: max|diff| / scale " + ", ".join(
+        f"{k} {v:.3e}" for k, v in worst.items()) + f"; bits {res['cuda']['bits']} equal")
+
+
 # ---------------------------------------------------------------------------
 # Phase 6: profile.
 # ---------------------------------------------------------------------------
@@ -906,14 +1108,27 @@ def phase_profile(name, rounds: int, unfused: bool = False):
     if unfused:
         spec.uplink.seg_logw_fn = ops.segment_logw_fn()
         name = f"{name} (unfused segment route)"
-    engine = FLEngine(task, spec)
+    return profile_engine(name, FLEngine(task, spec), shards, rounds, run_kw)
+
+
+def profile_cfl(rounds: int):
+    """``phase_profile`` of the BiCompFL-GR-CFL path (rounds 2-3 steady)."""
+    task, theta0, shards = cfl_gradient_compression.build("cuda")
+    return profile_engine("BiCompFL-GR-CFL", FLEngine(task, cfl_spec()), shards, rounds,
+                          {"theta0": theta0}, steady_rounds=CFL_ROUNDS)
+
+
+def profile_engine(name, engine, shards, rounds: int, run_kw, steady_rounds=ROUNDS):
+    """The body of ``phase_profile``: a warm-up round, an unprofiled run of
+    ``steady_rounds`` (its rounds 2.. give the steady round and the peak
+    memory), then ``rounds`` profiled rounds."""
     engine.run(shards, rounds=1, **run_kw)  # warm-up outside the window
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ph = engine.run(shards, rounds=ROUNDS, **run_kw)["phase_seconds"]
+    ph = engine.run(shards, rounds=steady_rounds, **run_kw)["phase_seconds"]
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    steady_ms = 1e3 * sum(sum(v[1:]) for v in ph.values()) / (ROUNDS - 1)
+    steady_ms = 1e3 * sum(sum(v[1:]) for v in ph.values()) / (steady_rounds - 1)
     busy_ms, kernels = device_profile(lambda: engine.run(shards, rounds=rounds, **run_kw),
                                       rounds)
     if busy_ms == 0:
@@ -1251,12 +1466,23 @@ def main() -> int:
         check_variant(label, launches, plans, out)
         runs[label] = (launches, plans, out)
     t_var = time.perf_counter() - t_var
+    t_cfl = time.perf_counter()
+    cfl_launches, cfl_out, cfl_peak = run_cfl()
+    check_cfl(cfl_launches, cfl_out)
+    runs["cfl"] = (cfl_launches, None, cfl_out)
+    peaks["cfl"] = cfl_peak
+    cfl_row = check_mrc_logw(CFL_LOGW_SHAPE, seed=30, device=True)
+    runs.update(phase_baselines())
+    t_cfl = time.perf_counter() - t_cfl
 
     # Phase 5.
     phase_codec_vs_cpu(payload, priors, kt)
     t5 = time.perf_counter()
     phase_variants_vs_cpu(payload, priors, kt, seg, n_seg)
     t5 = time.perf_counter() - t5
+    t5c = time.perf_counter()
+    phase_ef_vs_cpu(phase_cfl_vs_cpu())
+    t5c = time.perf_counter() - t5c
 
     # Phase 6.
     t6 = time.perf_counter()
@@ -1264,11 +1490,13 @@ def main() -> int:
                 "adaptive": phase_profile("adaptive", 1),
                 "adaptive (unfused segment route)": phase_profile("adaptive", 1, unfused=True),
                 "adaptive-avg": phase_profile("adaptive-avg", 1),
-                **{label: phase_profile(label, 1) for label in VARIANTS}}
+                **{label: phase_profile(label, 1) for label in VARIANTS},
+                "BiCompFL-GR-CFL": profile_cfl(1)}
     t6 = time.perf_counter() - t6
     log(f"variant phases' seconds: paths {t_var:.1f} (peak device memory MiB "
         f"{ {k: round(v / 2**20, 1) for k, v in peaks.items()} }), card vs cpu {t5:.1f}, "
-        f"profiles (all paths) {t6:.1f}")
+        f"profiles (all paths) {t6:.1f}; CFL and baselines: paths {t_cfl:.1f}, card vs cpu "
+        f"{t5c:.1f}")
 
     t_fl = time.perf_counter()
     # Phase 7.
@@ -1298,7 +1526,7 @@ def main() -> int:
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = [("mrc_logw", "mrc_logw", "src/repro/kernels/mrc_weights.py:71", main_row,
-             by_path("mrc_logw"), {"adaptive_avg_shapes": avg_rows}),
+             by_path("mrc_logw"), {"adaptive_avg_shapes": avg_rows, "cfl_shape": cfl_row}),
             ("bernoulli_kl", "bernoulli_kl", "src/repro/kernels/bernoulli_kl.py:46",
              kl_rows["profile"],
              by_path("bernoulli_kl", "bernoulli_kl_total", "bernoulli_kl_profile"),

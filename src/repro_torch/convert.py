@@ -14,7 +14,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.fl.data import Dataset
 from repro_torch.fl.nets import MLP, flatten_weights
-from repro_torch.fl.tasks import MaskTask
+from repro_torch.fl.tasks import CFLTask, MaskTask
 
 
 def tensor(arr, device="cuda", dtype=torch.float32) -> torch.Tensor:
@@ -46,6 +46,23 @@ def mask_task(w0_flat, x_test, y_test, *, dims: Sequence[int],
     return MaskTask(net=net, w0_flat=w0, unravel=unravel,
                     x_test=tensor(x_test, device),
                     y_test=tensor(y_test, device, torch.int64), **kw)
+
+
+def cfl_task(theta0, x_test, y_test, *, dims: Sequence[int], device="cuda", **kw):
+    """``(CFLTask, theta0)`` over an MLP of layer ``dims`` from the
+    reference's flattened initial weights ``theta0`` (``ravel_pytree``
+    order).  The port's own ``make_cfl_task`` draws its Kaiming normals with
+    ``prng.normal``, which agrees with ``jax.random.normal`` only to a few
+    ulp, so parity runs start from the reference's ``theta0`` instead."""
+    net = MLP(dims, device=device)
+    _, unravel = flatten_weights(net.frozen_weights())
+    theta = tensor(theta0, device)
+    if theta.shape != (sum(a * b for a, b in net.shapes),):
+        raise ValueError(f"theta0 of shape {tuple(theta.shape)} is not an MLP {tuple(dims)}")
+    task = CFLTask(net=net, unravel=unravel, d=int(theta.shape[0]),
+                   x_test=tensor(x_test, device),
+                   y_test=tensor(y_test, device, torch.int64), **kw)
+    return task, theta
 
 
 def _array_tensor(arr, device) -> torch.Tensor:

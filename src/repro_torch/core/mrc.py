@@ -99,11 +99,17 @@ def sample_mean(x: torch.Tensor) -> torch.Tensor:
 
     XLA turns the division by the count into a multiply by its float32
     reciprocal, so a mean of {0,1} samples is ``sum * f32(1/n)`` there (for
-    n = 10, 9/10 becomes 0.90000004, not 0.9).  Doing the same keeps the
-    port's model bit-identical to the reference's.
+    n = 10, 9/10 becomes 0.90000004, not 0.9), and it sums the rows one
+    after the other; ``torch.sum`` over axis 0 does not always (a few
+    columns of a real-valued (5, 1001) sum differ).  Doing both as XLA does
+    keeps the port's model bit-identical to the reference's, for the
+    {0,1} samples of BiCompFL and the real-valued deltas of CFL and the
+    baselines alike.
     """
-    return x.sum(dim=0) * torch.tensor(1.0 / x.shape[0], dtype=x.dtype,
-                                       device=x.device)
+    total = x[0]
+    for row in x[1:]:
+        total = total + row
+    return total * torch.tensor(1.0 / x.shape[0], dtype=x.dtype, device=x.device)
 
 
 def _gumbel(select_key: torch.Tensor, n_blocks: int, n_is: int) -> torch.Tensor:

@@ -10,17 +10,27 @@ and downlinks::
 
     step_down(ctx, state, update, theta, theta_hat) -> (DownlinkResult, state)
 
-with ``transmit`` / ``distribute`` as the stateless object shell.  Bits are
-computed from shapes and the round's :class:`BlockPlan`, as Python floats.
+with the state made by ``init_up_state`` / ``init_down_state`` and carried
+by the engine; the stateful (error-feedback) channels also implement
+``flush_step(state, n, d) -> (residual, bits, state)`` for the periodic
+sync.  Bits are computed from shapes and the round's :class:`BlockPlan`,
+as Python numbers.
 
 This port holds the channels of the four BiCompFL variants:
 ``MRCFixedChannel`` (MRC uplink over fixed blocks) and
 ``MRCAdaptiveChannel`` (MRC uplink over the variable segments of an
 adaptive plan), each on shared (GR) or private (PR) candidates;
 ``IndexRelayDownlink`` (GR), ``MRCBroadcastDownlink`` (GR-Reconst),
-``MRCPrivateDownlink`` (PR) and ``SplitBlockDownlink`` (PR-SplitDL).  The
-wire codecs (``encode_up``, ``decode_up`` and friends) and the fused path's
-``pin`` come later.
+``MRCPrivateDownlink`` (PR) and ``SplitBlockDownlink`` (PR-SplitDL).  It
+also holds BiCompFL-GR-CFL's ``QuantizedMRCUplink`` (stochastic sign +
+MRC against the Ber(1/2) prior) and the baselines' channels:
+``DenseChannel``, ``SignEFChannel`` (sign + error feedback, also
+Neolithic's repeated passes), ``TopKEFChannel`` and ``SliceDownlink``
+(M3).  Those are step functions only: the reference's object shells that
+keep the error-feedback memory in the channel (``transmit`` /
+``distribute`` / ``flush`` / ``export_state`` on the EF channels), the
+wire codecs (``encode_up``, ``decode_up`` and friends, ``flush_wire``) and
+the fused path's ``pin`` come later.
 
 The key-derivation tags are the reference's, so both packages draw the same
 candidates and selections in every round.
@@ -38,6 +48,8 @@ from repro_torch import prng
 from repro_torch.core import mrc
 from repro_torch.core.bernoulli import clip01
 from repro_torch.core.blocks import BlockPlan  # noqa: F401  (travels with the API)
+from repro_torch.core.quantizers import (FLOAT_BITS, mean_abs, sign_compress, stochastic_sign,
+                                         topk_bits, topk_compress)
 
 # ---------------------------------------------------------------------------
 # Key-derivation tags (shared-randomness schedule, identical to the reference).
@@ -105,11 +117,16 @@ class RoundContext:
 
 @dataclass(frozen=True)
 class ServerUpdate:
-    """Aggregator output: the proposed next server model.  BiCompFL works
-    in model space, so the aggregate *is* the new model (the delta-space
-    fields of the reference's baselines come with those schemes)."""
+    """Aggregator output: the proposed next server model.
+
+    ``delta`` carries the aggregate update direction of delta-space schemes
+    (``theta = theta_prev - lr * delta``: CFL and the baselines); it is None
+    for model-space schemes (BiCompFL), whose aggregate *is* the new model.
+    """
 
     theta: torch.Tensor
+    delta: Optional[torch.Tensor] = None
+    lr: float = 1.0
 
 
 class DownlinkResult(NamedTuple):
@@ -126,7 +143,7 @@ class DownlinkResult(NamedTuple):
 class StatelessUplink:
     """Object shell + trivial state for uplinks without memory."""
 
-    def init_up_state(self, n: int, d: int):
+    def init_up_state(self, n: int, d: int, device):
         return EMPTY_STATE
 
     def transmit(self, ctx, payload, priors):
@@ -137,7 +154,7 @@ class StatelessUplink:
 class StatelessDownlink:
     """Object shell + trivial state for downlinks without memory."""
 
-    def init_down_state(self, n: int, d: int):
+    def init_down_state(self, n: int, d: int, device):
         return EMPTY_STATE
 
     def distribute(self, ctx, update, theta, theta_hat):
@@ -157,14 +174,13 @@ class MRCFixedChannel(StatelessUplink):
     ``shared=True`` (GR): every client draws its candidates from the
     *common* round key; ``shared=False`` (PR): client i from its private
     ``client_key(kt, i)``.  The cohort's blocks are encoded in one batch:
-    one ``logw_fn`` call (one kernel launch on the card) per round and
+    one ``ops.mrc_logw`` call (one kernel launch on the card) per round and
     conveyed sample.
     """
 
     n_is: int = 256
     n_samples: int = 1
     shared: bool = True
-    logw_fn: Any = None
 
     def _transmit(self, ctx, payload, priors):
         """Returns (indices (n_act, n_samples, B), q_hat (n_act, d), bits)."""
@@ -175,8 +191,7 @@ class MRCFixedChannel(StatelessUplink):
         sels = _vfold(prng.fold_in(kt, TAG_UL_SELECT), ctx.active_ids)
         skey = kt if self.shared else mrc.client_key(kt, ctx.active_ids)
         idxs, q_hat_b = mrc.transmit_fixed(
-            skey, sels, qb, pb, n_is=self.n_is, n_samples=self.n_samples,
-            logw_fn=self.logw_fn)
+            skey, sels, qb, pb, n_is=self.n_is, n_samples=self.n_samples)
         bits = ctx.n_active * self.n_samples * plan.billable * math.log2(self.n_is)
         return idxs, from_blocks(q_hat_b, ctx.d), bits
 
@@ -226,6 +241,47 @@ class MRCAdaptiveChannel(StatelessUplink):
 
 
 # ---------------------------------------------------------------------------
+# BiCompFL-GR-CFL uplink: stochastic sign + MRC in conventional FL.
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class QuantizedMRCUplink(StatelessUplink):
+    """Conventional-FL uplink: stochastic sign -> MRC vs the Ber(1/2) prior.
+
+    Each client maps its delta to a Bernoulli posterior q = sigmoid(delta/K)
+    with per-client temperature K = mean|delta| (32-bit side information),
+    conveys ``n_samples`` MRC samples against the uninformative prior on
+    the common round key's candidates, and the server reconstructs the
+    direction (2*q_hat - 1) * K.  The whole cohort is one batched encode:
+    one ``ops.mrc_logw`` call (one kernel launch on the card) per round and
+    conveyed sample.
+    """
+
+    n_is: int = 256
+    n_samples: int = 1
+    side_info_bits = FLOAT_BITS   # K, one float32 per client
+
+    def _transmit(self, ctx, payload, priors):
+        """Returns (indices (n_act, n_samples, B), K (n_act,), g_hat (n_act, d), bits)."""
+        plan, kt, d = ctx.plan, ctx.key, ctx.d
+        sels = _vfold(prng.fold_in(kt, TAG_UL_SELECT), ctx.active_ids)
+        ks = mean_abs(payload) + 1e-12                               # (n_act, 1)
+        qb = to_blocks(stochastic_sign(payload, temperature=ks).q, plan.size)
+        idxs, q_hat_b = mrc.transmit_fixed(
+            kt, sels, qb, qb.new_full(qb.shape, 0.5), n_is=self.n_is,
+            n_samples=self.n_samples)
+        g_hat = (2.0 * from_blocks(q_hat_b, d) - 1.0) * ks
+        bits = ctx.n_active * (self.n_samples * plan.billable * math.log2(self.n_is)
+                               + self.side_info_bits)
+        return idxs, ks[:, 0], g_hat, bits
+
+    def step_up(self, ctx, state, payload, priors):
+        _, _, g_hat, bits = self._transmit(ctx, payload, priors)
+        return g_hat, bits, state
+
+
+# ---------------------------------------------------------------------------
 # BiCompFL-GR downlink.
 # ---------------------------------------------------------------------------
 
@@ -236,18 +292,20 @@ class IndexRelayDownlink(StatelessDownlink):
 
     With common candidates every client reconstructs the identical global
     model, so nothing is recomputed -- only the bits are booked: each client
-    receives the (n-1) other clients' index streams.
+    receives the (n-1) other clients' index streams, plus their per-client
+    side information (CFL's temperatures K).
     """
 
     n_is: int = 256
     n_samples: int = 1           # relayed samples per client (n_UL)
+    side_info_bits: float = 0.0
     broadcast_shareable: bool = True
 
     def step_down(self, ctx, state, update, theta, theta_hat):
         n = ctx.n_clients
         th = update.theta
         bits = n * (n - 1) * (self.n_samples * ctx.plan.billable
-                              * math.log2(self.n_is))
+                              * math.log2(self.n_is) + self.side_info_bits)
         return DownlinkResult(th, th[None].repeat(n, 1), bits), state
 
 
@@ -264,7 +322,6 @@ class MRCBroadcastDownlink(StatelessDownlink):
 
     n_is: int = 256
     n_samples: int = 1           # n_DL
-    logw_fn: Any = None
     broadcast_shareable: bool = True
 
     def _transmit(self, ctx, update, theta_hat):
@@ -281,7 +338,7 @@ class MRCBroadcastDownlink(StatelessDownlink):
         else:
             idxs, est_b = mrc.transmit_fixed(
                 skey, sel, to_blocks(tgt, plan.size), to_blocks(p_common, plan.size),
-                n_is=self.n_is, n_samples=self.n_samples, logw_fn=self.logw_fn)
+                n_is=self.n_is, n_samples=self.n_samples)
             est = from_blocks(est_b, d)
         bits = ctx.n_clients * self.n_samples * plan.billable * math.log2(self.n_is)
         return idxs, est, bits
@@ -302,7 +359,6 @@ class MRCPrivateDownlink(StatelessDownlink):
 
     n_is: int = 256
     n_samples: int = 1           # n_DL
-    logw_fn: Any = None
     broadcast_shareable: bool = False
 
     def _transmit(self, ctx, update, theta_hat):
@@ -320,7 +376,7 @@ class MRCPrivateDownlink(StatelessDownlink):
         else:
             idxs, est_b = mrc.transmit_fixed(
                 skeys, sels, to_blocks(tgt, plan.size), to_blocks(priors, plan.size),
-                n_is=self.n_is, n_samples=self.n_samples, logw_fn=self.logw_fn)
+                n_is=self.n_is, n_samples=self.n_samples)
             est = from_blocks(est_b, d)
         bits = ctx.n_active * self.n_samples * plan.billable * math.log2(self.n_is)
         return idxs, est, bits
@@ -347,7 +403,6 @@ class SplitBlockDownlink(StatelessDownlink):
 
     n_is: int = 256
     n_samples: int = 1           # n_DL
-    logw_fn: Any = None
     broadcast_shareable: bool = False
 
     @staticmethod
@@ -379,7 +434,7 @@ class SplitBlockDownlink(StatelessDownlink):
         rows = own[..., None].expand(n, max_len, size)
         idxs, est_b = mrc.transmit_fixed(
             skeys, sels, tb_ext[own], torch.take_along_dim(hb_ext, rows, dim=1),
-            n_is=self.n_is, n_samples=self.n_samples, logw_fn=self.logw_fn)
+            n_is=self.n_is, n_samples=self.n_samples)
         hb_ext = hb_ext.scatter(1, rows, clip01(est_b))  # owned lists hold no repeats
         bits = n * self.n_samples * max_len * math.log2(self.n_is)
         return idxs, from_blocks(hb_ext[:, :n_blocks], d), bits
@@ -387,3 +442,136 @@ class SplitBlockDownlink(StatelessDownlink):
     def step_down(self, ctx, state, update, theta, theta_hat):
         _, theta_hat, bits = self._transmit(ctx, update, theta_hat)
         return DownlinkResult(update.theta, theta_hat, bits), state
+
+
+# ---------------------------------------------------------------------------
+# Non-stochastic baseline channels.
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class DenseChannel(StatelessUplink, StatelessDownlink):
+    """Lossless 32-bit transmission; usable on either direction."""
+
+    broadcast_shareable: bool = True
+
+    def step_up(self, ctx, state, payload, priors):
+        return payload, ctx.n_active * ctx.d * FLOAT_BITS, state
+
+    def step_down(self, ctx, state, update, theta, theta_hat):
+        th = update.theta
+        return DownlinkResult(th, th[None].repeat(ctx.n_clients, 1),
+                              ctx.n_clients * ctx.d * FLOAT_BITS), state
+
+    def flush_step(self, state, n, d):
+        # Stateless: a periodic sync through a dense channel only costs bits.
+        return 0.0, n * d * FLOAT_BITS, state
+
+
+def _require_full_cohort(ctx):
+    if ctx.n_active != ctx.n_clients:
+        raise ValueError("error-feedback uplinks require full participation")
+
+
+@dataclass
+class SignEFChannel:
+    """Sign compression with error feedback; ``passes > 1`` repeats the
+    compression on the residual (Neolithic's R-pass scheme, ~``passes``
+    bits/param).
+
+    As an uplink its state is the per-client EF memory (n, d); as a
+    downlink the server-side memory (d,), and it steps the server *and*
+    the clients with the compressed aggregate (DoubleSqueeze).
+    """
+
+    passes: int = 1
+    broadcast_shareable: bool = True
+
+    def _compress_passes(self, v):
+        """Iterated sign compression over the last axis, also yielding the
+        per-pass wire payload: (scale, sign-bit vector) per pass.  The
+        reconstruction ``sum_r scale_r * (+-1)`` is ``sign_compress`` of
+        each residual in turn."""
+        comps = []
+        c = None
+        resid = v
+        for _ in range(self.passes):
+            scale = mean_abs(resid)
+            sgn = resid >= 0
+            step = sign_compress(resid)  # == scale * where(sgn, 1, -1)
+            c = step if c is None else c + step
+            resid = v - c
+            comps.append((scale, sgn))
+        return c, comps
+
+    def _compress(self, v):
+        c, _ = self._compress_passes(v)
+        return c
+
+    def init_up_state(self, n, d, device):
+        return torch.zeros((n, d), dtype=torch.float32, device=device)
+
+    def init_down_state(self, n, d, device):
+        return torch.zeros((d,), dtype=torch.float32, device=device)
+
+    def _bits(self, ctx):
+        return ctx.n_clients * self.passes * (ctx.d + FLOAT_BITS)
+
+    def step_up(self, ctx, e, payload, priors):
+        _require_full_cohort(ctx)
+        acc = payload + e
+        c = self._compress(acc)
+        return c, self._bits(ctx), acc - c
+
+    def step_down(self, ctx, e, update, theta, theta_hat):
+        g = update.delta if update.delta is not None \
+            else (theta - update.theta) / update.lr
+        agg = g + e
+        c_s = self._compress(agg)
+        return DownlinkResult(theta - update.lr * c_s, theta_hat - update.lr * c_s[None, :],
+                              self._bits(ctx)), agg - c_s
+
+    def flush_step(self, e, n, d):
+        r = mrc.sample_mean(e) if e.dim() == 2 else e
+        return r, n * d * FLOAT_BITS, torch.zeros_like(e)
+
+
+@dataclass
+class TopKEFChannel:
+    """Top-k sparsification with error feedback (M3 uplink, k = d/n)."""
+
+    k: int
+
+    def init_up_state(self, n, d, device):
+        return torch.zeros((n, d), dtype=torch.float32, device=device)
+
+    def step_up(self, ctx, e, payload, priors):
+        _require_full_cohort(ctx)
+        acc = payload + e
+        c = topk_compress(acc, self.k)
+        return c, ctx.n_clients * topk_bits(ctx.d, self.k), acc - c
+
+    def flush_step(self, e, n, d):
+        return mrc.sample_mean(e), n * d * FLOAT_BITS, torch.zeros_like(e)
+
+
+@dataclass
+class SliceDownlink(StatelessDownlink):
+    """M3 downlink: each client receives a disjoint dense 1/n model slice;
+    client estimates diverge (no broadcast saving possible).
+
+    ``k`` is the slice width, M3's top-k uplink budget d/n; the last slice
+    runs to d."""
+
+    k: int
+    broadcast_shareable: bool = False
+
+    def step_down(self, ctx, state, update, theta, theta_hat):
+        n, d, k = ctx.n_clients, ctx.d, self.k
+        th = update.theta
+        new_hat = theta_hat.clone()
+        for i in range(n):
+            lo = i * k
+            hi = d if i == n - 1 else min((i + 1) * k, d)
+            new_hat[i, lo:hi] = th[lo:hi]
+        return DownlinkResult(th, new_hat, n * (d / n) * FLOAT_BITS), state

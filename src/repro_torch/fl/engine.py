@@ -1,14 +1,15 @@
 """The FL round loop: local-train -> uplink -> aggregate -> downlink.
 
-Port of ``repro.fl.engine`` for this slice: an :class:`EngineSpec` (uplink,
-downlink, aggregator, block allocation) run by :class:`FLEngine` on the host
-path -- a Python loop over rounds whose work runs on the task's device.  The
-engine owns what every scheme shares: the shared-randomness key schedule,
-the block-allocation control plane, BitMeter accounting, the cohort
-schedule and the evaluation history.  Under partial participation
-(``EngineSpec.participation`` < 1, the PR variants only) each round trains
-and transmits a cohort drawn by :meth:`FLEngine.cohort_schedule`; the other
-clients keep their estimates.
+Port of ``repro.fl.engine``: an :class:`EngineSpec` (uplink, downlink,
+aggregator, block allocation, EF sync period) run by :class:`FLEngine` on
+the host path -- a Python loop over rounds whose work runs on the task's
+device.  The engine owns what every scheme shares: the shared-randomness
+key schedule, the block-allocation control plane, the channels' explicit
+state carry, the periodic error-feedback sync (CSER / LIEC), BitMeter
+accounting, the cohort schedule and the evaluation history.  Under partial
+participation (``EngineSpec.participation`` < 1, the PR variants only)
+each round trains and transmits a cohort drawn by
+:meth:`FLEngine.cohort_schedule`; the other clients keep their estimates.
 
 The block plan is a host-side numpy decision each round, as in the
 reference: an adaptive allocation reads the round's KL statistic
@@ -16,8 +17,7 @@ reference: an adaptive allocation reads the round's KL statistic
 
 Not ported yet, and refused with ``NotImplementedError``: the fused
 whole-run path (``mode="fused"``), the wire audit, fault injection,
-and checkpoint/resume.  The error-feedback sync of the baselines comes
-with the schemes that use it.
+and checkpoint/resume.
 """
 from __future__ import annotations
 
@@ -74,6 +74,17 @@ class MeanModelAggregator:
 
 
 @dataclass
+class MeanDeltaAggregator:
+    """Conventional FL: average the (compressed) deltas, step the server."""
+
+    server_lr: float = 1.0
+
+    def __call__(self, ctx, theta, up_out) -> ServerUpdate:
+        g = _cohort_mean(ctx, up_out)
+        return ServerUpdate(theta=theta - self.server_lr * g, delta=g, lr=self.server_lr)
+
+
+@dataclass
 class EngineSpec:
     """A complete FL scheme: who compresses what, in which direction."""
 
@@ -82,6 +93,7 @@ class EngineSpec:
     aggregator: Any
     allocation: Any = None       # block-allocation strategy (MRC schemes)
     participation: float = 1.0   # fraction of clients active per round
+    sync_period: int = 0         # 0 = never; else flush EF memories every k
     name: str = ""
 
 
@@ -156,8 +168,8 @@ class FLEngine:
             spec.downlink, "broadcast_shareable", True))
         n_active = max(1, int(round(spec.participation * n)))
         schedule = self.cohort_schedule(rounds, n, n_active, seed, cohort_rng)
-        up_s = spec.uplink.init_up_state(n, d)
-        dn_s = spec.downlink.init_down_state(n, d)
+        up_s = spec.uplink.init_up_state(n, d, device)
+        dn_s = spec.downlink.init_down_state(n, d, device)
         base = prng.PRNGKey(seed, device=device)
         history = []
         phase = {"train": [], "codec": [], "eval": []}
@@ -197,8 +209,18 @@ class FLEngine:
             update = spec.aggregator(ctx, theta, up_out)
             res, dn_s = spec.downlink.step_down(ctx, dn_s, update, theta, theta_hat)
             theta, theta_hat = res.theta, res.theta_hat
+            dl_bits = res.bits
+            # Periodic EF sync (CSER / LIEC): both links flush their memory
+            # at the aggregator's step size; every client resyncs to theta.
+            if spec.sync_period and (t + 1) % spec.sync_period == 0:
+                r_up, b_up, up_s = spec.uplink.flush_step(up_s, n, d)
+                r_dn, b_dn, dn_s = spec.downlink.flush_step(dn_s, n, d)
+                theta = theta - update.lr * (r_up + r_dn)
+                theta_hat = theta[None].repeat(n, 1)
+                ul_bits += b_up
+                dl_bits += b_dn
             oh = plan.overhead_bits * n if plan is not None else 0.0
-            meter.add_round(ul_bits, res.bits, overhead_bits=oh)
+            meter.add_round(ul_bits, dl_bits, overhead_bits=oh)
             t2 = sync()
             t3 = t2
             if (t + 1) % eval_every == 0 or t == rounds - 1:

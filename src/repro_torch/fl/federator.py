@@ -15,16 +15,22 @@ Variants (``BiCompFLConfig.variant``):
 * ``PR-SplitDL``  -- PR, but each client receives only a disjoint 1/n of
                      the blocks (downlink cost / n).
 
-``run_bicompfl`` builds the scheme from the registry and runs the shared
+``run_bicompfl_cfl`` runs BiCompFL-GR-CFL, the paper's technique in
+conventional FL (stochastic sign + MRC against the Ber(1/2) prior).
+
+Both build the scheme from the registry and run the shared
 :class:`~repro_torch.fl.engine.FLEngine` host loop on the task's device.
-The reference's ``chunk`` (a memory knob of its ``vmap``) is left out: the
-port encodes a batch whole.  CFL (``CFLConfig``, ``run_bicompfl_cfl``)
-comes with its slice.
+The reference's ``chunk`` (a memory knob of its ``vmap``) and ``logw_fn``
+are left out: the port encodes a batch whole, through ``ops.mrc_logw``.
+So is ``CFLConfig.temperature``, which the reference never reads (K is
+always each client's mean |delta|).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
+
+import torch
 
 from repro_torch.core.blocks import FixedAllocation
 from . import registry
@@ -55,4 +61,34 @@ def run_bicompfl(task, shards: Dataset, cfg: BiCompFLConfig) -> Dict[str, Any]:
         cfg.variant, allocation=cfg.allocation, n_is=cfg.n_is, n_ul=cfg.n_ul,
         n_dl=n_dl, participation=cfg.participation)
     return FLEngine(task, spec).run(shards, rounds=cfg.rounds, seed=cfg.seed,
+                                    eval_every=cfg.eval_every)
+
+
+@dataclass
+class CFLConfig:
+    # CFL compression is near-element-wise (paper Sec. 4): a *small* block
+    # keeps the per-block d_KL(q || 1/2) within the log(n_is) MRC budget --
+    # stochastic-sign posteriors sit far from the uninformative prior.
+    n_is: int = 256
+    n_ul: int = 1
+    block_size: int = 16
+    rounds: int = 30
+    server_lr: float = 1.0
+    seed: int = 0
+    eval_every: int = 1
+
+
+def run_bicompfl_cfl(task, theta0: torch.Tensor, shards: Dataset,
+                     cfg: CFLConfig) -> Dict[str, Any]:
+    """BiCompFL-GR applied to conventional FL with stochastic SignSGD.
+
+    Clients quantize their local delta with q = sigmoid(delta / K), convey
+    samples through MRC against the uninformative prior p = 1/2, the
+    federator averages the reconstructed directions (2*q_hat - 1)*K and
+    steps; the downlink relays the indices (global randomness), so the
+    clients track the identical global model.
+    """
+    spec = registry.cfl_spec(n_is=cfg.n_is, n_ul=cfg.n_ul, block_size=cfg.block_size,
+                             server_lr=cfg.server_lr)
+    return FLEngine(task, spec).run(shards, theta0, rounds=cfg.rounds, seed=cfg.seed,
                                     eval_every=cfg.eval_every)

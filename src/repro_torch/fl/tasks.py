@@ -1,16 +1,22 @@
-"""Local-training tasks (port of ``repro.fl.tasks``): probabilistic-mask training.
+"""Local-training tasks (port of ``repro.fl.tasks``): the client step of the FL loop.
 
-``MaskTask``: the model is a vector theta in [0, 1]^d of Bernoulli parameters
-over a fixed signed-constant network w0.  Local training is mirror descent:
-map theta to scores s = sigma^{-1}(theta), take Adam steps on s with the
-straight-through estimator through the Bernoulli mask draw, map back.  The
-whole cohort trains at once: clients are a leading batch axis, which
-replaces the reference's ``vmap``.  ``CFLTask`` comes with a later slice.
+* ``MaskTask``: the model is a vector theta in [0, 1]^d of Bernoulli
+  parameters over a fixed signed-constant network w0.  Local training is
+  mirror descent: map theta to scores s = sigma^{-1}(theta), take Adam steps
+  on s with the straight-through estimator through the Bernoulli mask draw,
+  map back.
+* ``CFLTask``: conventional FL.  Local training runs L epochs of Adam on the
+  dense weights from the client's model estimate and returns the model
+  *delta* (the "gradient" that the compressors quantize).
+
+The whole cohort trains at once: clients are a leading batch axis, which
+replaces the reference's ``vmap``.  Both use plain Adam, the reference's
+default ``optimizer``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Tuple
 
 import torch
 
@@ -86,3 +92,59 @@ def make_mask_task(net: MLP, key: torch.Tensor, x_test, y_test, **kw) -> MaskTas
     w0_flat, unravel = flatten_weights(net.init(key))
     return MaskTask(net=net, w0_flat=w0_flat, unravel=unravel,
                     x_test=x_test, y_test=y_test, **kw)
+
+
+@dataclass(eq=False)
+class CFLTask:
+    net: MLP
+    unravel: Callable
+    d: int
+    x_test: torch.Tensor
+    y_test: torch.Tensor
+    local_epochs: int = 3
+    batch_size: int = 128
+    local_lr: float = 3e-4
+
+    def _weight_grad(self, w, xb, yb):
+        """d loss / d w for every client: w (n, d), xb (n, bs, ...)."""
+        w = w.detach().requires_grad_(True)
+        logits = self.net(xb, self.unravel(w))
+        (g,) = torch.autograd.grad(cross_entropy(logits, yb).sum(), w)
+        return g
+
+    def local_train(self, theta: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
+                    keys: torch.Tensor) -> torch.Tensor:
+        """L epochs of Adam from each client's estimate; returns the deltas
+        ``theta - w_fin`` (the negative update direction).
+
+        theta (n, d), xs (n, shard, H, W, C), ys (n, shard), keys (n, 2).
+        The batches are ``randint(key, (n_steps, bs), 0, shard)`` on the
+        client's key itself (``MaskTask`` splits it first).
+        """
+        n, shard = ys.shape
+        bs = min(self.batch_size, shard)
+        steps_per_epoch = max(shard // bs, 1)
+        n_steps = self.local_epochs * steps_per_epoch
+        batch_idx = prng.randint(keys, (n_steps, bs), 0, shard)   # (n, steps, bs)
+        opt = optim.adam(self.local_lr)
+        rows = torch.arange(n, device=xs.device)[:, None]
+        w = theta
+        st = opt.init(w)
+        for k in range(n_steps):
+            idx = batch_idx[:, k]
+            g = self._weight_grad(w, xs[rows, idx], ys[rows, idx])
+            w, st = opt.update(g, w, st)
+        return theta - w
+
+    def evaluate(self, theta: torch.Tensor) -> float:
+        return float(accuracy(self.net, self.unravel(theta), self.x_test, self.y_test))
+
+
+def make_cfl_task(net: MLP, key: torch.Tensor, x_test, y_test,
+                  **kw) -> Tuple[CFLTask, torch.Tensor]:
+    """A ``CFLTask`` and its initial model ``theta0``: the network's
+    Kaiming-normal weights drawn from ``key``, flattened."""
+    w0_flat, unravel = flatten_weights(net.init(key))
+    task = CFLTask(net=net, unravel=unravel, d=int(w0_flat.shape[0]),
+                   x_test=x_test, y_test=y_test, **kw)
+    return task, w0_flat
