@@ -21,17 +21,27 @@ Phases (each one fails the run with a non-zero exit; nothing is swallowed):
    the keyed segment encoder (``ops.segment_mrc_encode``) also logW
    bit-identical to the u-fed kernel fed ``prng``'s draw, the near-tie
    count of its indices, and its time against the unfused route it
-   replaced, with the keyed (integer operations) and u-fed (bytes) bounds;
+   replaced, with the keyed (threefry's instructions) and u-fed (bytes)
+   bounds;
    the same encoder under per-client keys ``(C, 2)`` (the PR variants'
    private candidates, drawn once per client), logW bit-identical to the
    u-fed kernel fed ``prng``'s draw of each client's key, timed against
-   its bound;
+   its bound; the fused fixed-block encoder (``ops.mrc_fixed_encode``, the
+   keyed form of ``mrc_logw``) at GR's shape (shared key), PR's uplink
+   (one key per client), the CFL uplink's (17600 candidate rows of 16
+   under Ber(1/2)) and ragged shapes: logW bit-identical to the u-fed
+   ``mrc_logw`` fed ``prng``'s candidates, indices equal to the plain
+   route's outside counted near-ties, the sample exact, timed against its
+   plain version, the unfused route it replaced (prng's candidates through
+   ``ops.mrc_logw``) and its instruction bound; the u-fed ``mrc_logw`` at
+   the GR and CFL shapes with its device time beside ``torch.baddbmm``;
 4. drive the three main paths -- the quickstart's BiCompFL-GR at full width
    (MLP 100->256->10, d = 28160, 10 clients, 64 candidates) under
    ``FixedAllocation(128)``, ``AdaptiveAllocation(n_is=64)`` and
    ``AdaptiveAvgAllocation(n_is=64)`` -- for a few rounds each on the card,
    with every kernel launch count set to 0 just before each path and read
-   just after; then time ``mrc_logw`` at the block sizes Adaptive-Avg chose;
+   just after; then ``mrc_logw`` (timed) and ``mrc_fixed_encode`` at the
+   block sizes Adaptive-Avg chose;
    then the variant paths at the same width, 3 rounds each, through
    ``fl.federator.run_bicompfl`` (``n_dl`` = 10, the paper's default):
    GR-Reconst (fixed), PR (fixed), PR (adaptive), PR-SplitDL (fixed), and
@@ -41,20 +51,24 @@ Phases (each one fails the run with a non-zero exit; nothing is swallowed):
    ``examples/cfl_gradient_compression.py``'s full width (a dense MLP
    100->256->10, d = 28160, 10 clients), 3 rounds each:
    BiCompFL-GR-CFL through ``fl.federator.run_bicompfl_cfl`` (one
-   ``mrc_logw`` launch a round, asserted, with the reference's bits and
-   bpp), ``mrc_logw`` at that path's shape (17600, 256, 16) with its device
-   time, and the seven baselines through ``fl.baselines.run_baseline`` (the
-   reference's bits; CSER and LIEC flush after round 2; no kernel launch);
+   ``mrc_fixed_encode`` launch a round, asserted, with the reference's bits
+   and bpp), and the seven baselines through ``fl.baselines.run_baseline``
+   (the reference's bits; CSER and LIEC flush after round 2; no kernel
+   launch); every fixed-block path launches ``mrc_fixed_encode`` once per
+   encode and ``mrc_logw`` never;
 5. check the card's codecs and KL statistics against the port's CPU routes
    on the same inputs (the CPU routes are tied to the JAX reference by the
    CPU tests); then one round of each variant channel's indices, card
-   against CPU, on the round-0 inputs; one BiCompFL-GR-CFL round from the
+   against CPU, on the round-0 inputs (the GR uplink's fixed encode too);
+   one BiCompFL-GR-CFL round from the
    same state on the card and on the CPU (indices and bits), and one
    doublesqueeze round's EF states on the same inputs;
 6. profile steady rounds of each path with ``torch.profiler``: device time
    by kernel, kernels per round, and the device's idle share of an
    unprofiled steady round; the adaptive path also on the unfused segment
-   route (``seg_logw_fn=ops.segment_logw``), as the before to its after;
+   route (``seg_logw_fn=ops.segment_logw``), and GR fixed, PR fixed and
+   the CFL path also on the unfused fixed-block route (prng's candidates
+   through ``ops.mrc_logw``), as the before to the fused encoders' after;
    the five variant paths and the CFL path too; each with its peak device
    memory;
 7. hold the model substrate's kernels (``ops.flash_attention``,
@@ -87,9 +101,11 @@ when torch sees no CUDA device.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -106,6 +122,7 @@ from repro_torch.core import mrc  # noqa: E402
 from repro_torch.core.bernoulli import clip01, log_ratio_coeffs  # noqa: E402
 from repro_torch.core.blocks import AdaptiveAllocation, AdaptiveAvgAllocation  # noqa: E402
 from repro_torch.core.blocks import BlockPlan, FixedAllocation  # noqa: E402
+from repro_torch.core.quantizers import mean_abs, stochastic_sign  # noqa: E402
 from repro_torch.fl import channels  # noqa: E402
 from repro_torch.fl.baselines import BaselineConfig, run_baseline  # noqa: E402
 from repro_torch.fl.channels import TAG_TRAIN  # noqa: E402
@@ -157,15 +174,32 @@ XCHECK_PROMPT = 256
 PREFILL_BATCH, PREFILL_SEQ = 2, 4096
 PROFILED_STEPS = 8
 MODELS = {"qwen3-1.7b": "flash_attention", "rwkv6-1.6b": "rwkv_time_mix"}
-KERNELS = ("mrc_logw", "bernoulli_kl", "bernoulli_kl_total", "bernoulli_kl_profile",
-           "segment_logw", "segment_mrc_encode", "segment_select", "flash_attention",
-           "rwkv_time_mix")
-# Integer instructions of one threefry draw in the keyed segment encoder, by
-# count of csrc/common.cuh's code: 20 rounds of add, funnel-shift rotate
-# and xor (60), 5 key injections of two adds (10), the counter add (1),
-# and xor, shift and or of the float conversion (3).
-THREEFRY_INT_OPS = 74
-INT32_LANES_PER_SM, SMS = 64, 132   # H100 SXM: INT32 units per SM, SMs
+KERNELS = ("mrc_logw", "mrc_fixed_encode", "bernoulli_kl", "bernoulli_kl_total",
+           "bernoulli_kl_profile", "segment_logw", "segment_mrc_encode", "segment_select",
+           "flash_attention", "rwkv_time_mix")
+# The keyed encoders are bound by their threefry draws.  A draw's cost is
+# read from compiled code: two probe kernels, built from csrc/common.cuh
+# with the kernels' nvcc flags, store in a loop either uniform_at(key, j)
+# or j itself; a draw's SASS instructions are the difference of the two
+# loop bodies (the key schedule is hoisted out of both, as it is out of
+# the kernels' row loops).
+THREEFRY_PROBE = r"""
+#include <stdint.h>
+#include "common.cuh"
+extern "C" __global__ void draw_probe(float* out, uint2 key, unsigned n) {
+#pragma unroll 1
+  for (unsigned j = threadIdx.x; j < n; j += blockDim.x) out[j] = uniform_at(key, j);
+}
+extern "C" __global__ void index_probe(float* out, uint2 key, unsigned n) {
+#pragma unroll 1
+  for (unsigned j = threadIdx.x; j < n; j += blockDim.x) out[j] = __uint_as_float(j);
+}
+"""
+# An H100 SM issues at most one warp instruction per clock from each of
+# its four schedulers, whatever pipe the instruction goes to (ALU, FMA or
+# another): 128 thread instructions per SM per clock, the rate behind the
+# data sheet's 67 TFLOP/s of fp32 (an FFMA counted as two operations).
+ISSUE_LANES_PER_SM, SMS = 128, 132
 # Device function names of each model kernel (bf16 and f32 flash; RWKV's two passes).
 KERNEL_SYMBOLS = {"flash_attention": ("flash_attn_wgmma", "flash_attn_kernel"),
                   "rwkv_time_mix": ("rwkv_intra", "rwkv_inter")}
@@ -186,7 +220,7 @@ JAX_COHORTS = [[0, 2, 4, 5, 9], [2, 5, 6, 8, 9], [0, 5, 6, 8, 9]]
 # n_is 256 and blocks of 16), 3 rounds each; CSER and LIEC sync every
 # BASELINE_PERIOD rounds, so that a flush falls inside the run.
 CFL_ROUNDS, BASELINE_PERIOD = 3, 2
-CFL_LOGW_SHAPE = (10 * 1760, 256, 16)   # one round's mrc_logw call: (n * B, n_is, S)
+CFL_LOGW_SHAPE = (10 * 1760, 256, 16)   # one round's encode as u-fed rows: (n * B, n_is, S)
 # The reference's booked bits, cumulative per round, for the same runs
 # (repro.fl: run_bicompfl_cfl and run_baseline with these settings, on the
 # CPU), and the CFL run's bpp as the example prints them to 6 places.
@@ -252,6 +286,71 @@ def sass_count(path: str, opcode: str) -> int:
     sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", path], capture_output=True,
                           text=True, check=True).stdout
     return sum(f" {opcode}" in line for line in sass.splitlines())
+
+
+SASS_LINE = re.compile(r"^/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;")
+
+
+def sass_functions(sass: str) -> dict:
+    """``cuobjdump -sass`` text -> {function: [(address, instruction)]};
+    a label line (``.L_x_3:``) is kept as (address of the next
+    instruction, the label)."""
+    fns, cur, labels = {}, None, []
+    for line in sass.splitlines():
+        text = line.strip()
+        m = SASS_LINE.match(text)
+        if text.startswith("Function :"):
+            cur = fns.setdefault(text.split(":", 1)[1].strip(), [])
+        elif cur is not None and text.startswith(".") and text.endswith(":"):
+            labels.append(text[:-1])
+        elif cur is not None and m:
+            cur.extend((int(m[1], 16), lab) for lab in labels)
+            labels = []
+            cur.append((int(m[1], 16), m[2]))
+    return fns
+
+
+def loop_body(code: list) -> list:
+    """The instructions of a function's one loop, from the target of its
+    backward branch to the branch itself, NOPs left out."""
+    where = {ins: addr for addr, ins in code if ins.startswith(".")}
+    for addr, ins in code:
+        words = ins.split()
+        if not any(w.split(".")[0] == "BRA" for w in words[:2]):
+            continue
+        target = words[-1].strip("`()")
+        start = where.get(target, int(target, 16) if target.startswith("0x") else None)
+        if start is not None and start < addr:
+            return [i for a, i in code if start <= a <= addr and not i.startswith(".")
+                    and not i.startswith("NOP")]
+    raise AssertionError("no backward branch in the probe's SASS")
+
+
+def threefry_instructions() -> tuple[int, dict]:
+    """SASS instructions of one threefry draw (``uniform_at``), as the
+    difference of the probe kernels' loop bodies; and the draw loop's
+    instructions by opcode."""
+    probe = build.BUILD_DIR / "threefry_probe.cu"
+    probe.parent.mkdir(parents=True, exist_ok=True)
+    probe.write_text(THREEFRY_PROBE)
+    flags = [f for f in build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC",
+                                                      "-Xptxas", "-v")]
+    cubin = probe.with_suffix(".cubin")
+    subprocess.run([build.cuda_tool("nvcc"), *flags, "-cubin", "-I", str(build.CSRC),
+                    "-o", str(cubin), str(probe)], check=True, capture_output=True, text=True)
+    sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(cubin)],
+                          capture_output=True, text=True, check=True).stdout
+    fns = sass_functions(sass)
+    draw, index = loop_body(fns["draw_probe"]), loop_body(fns["index_probe"])
+    ops_by_code = {}
+    for ins in draw:
+        code = ins.split()[1] if ins.startswith("@") else ins.split()[0]
+        ops_by_code[code.split(".")[0]] = ops_by_code.get(code.split(".")[0], 0) + 1
+    n = len(draw) - len(index)
+    if n < 60:
+        raise AssertionError(f"threefry probe: {n} instructions a draw is below threefry's "
+                             "20 rounds of add, rotate and xor")
+    return n, ops_by_code
 
 
 def launched_once(fn, *args, **kwargs):
@@ -543,12 +642,13 @@ def check_encode_case(label, key, sels, pc, a, b, seg, n_seg, n_is=64):
     return err, int(diff.sum())
 
 
-def check_segment_encode(payload, priors, kt, seg, n_seg, int_rate, fed_row):
+def check_segment_encode(payload, priors, kt, seg, n_seg, tf, fed_row):
     """The keyed kernel at the main path's call of a round (10 clients,
     n_is = 64, the round-0 plan), at degenerate segmentations and ragged
     shapes; timed against its plain version and against the unfused route
     it replaced (prng draw, u-fed kernel, Gumbel draw, logs, argmax, gather),
-    with the keyed bound (threefry's integer operations) and the u-fed one."""
+    with the keyed bound (threefry's instructions at the issue rate) and the
+    u-fed one."""
     n, d = payload.shape
     pc = clip01(priors).contiguous()
     a, b = (t.contiguous() for t in log_ratio_coeffs(clip01(payload), priors))
@@ -578,24 +678,25 @@ def check_segment_encode(payload, priors, kt, seg, n_seg, int_rate, fed_row):
     draws = 64 * d + n * 64 * n_seg
     nbytes = 4 * (3 * n * d + d + n * d + n * 64 * n_seg) + 8 * (n * n_seg + 2 + 2 * n)
     row = timed_row("segment_mrc_encode", (n, 64, d, n_seg), err, kernel, plain, None,
-                    nbytes, draws * THREEFRY_INT_OPS, int_rate)
+                    nbytes, draws * tf[0], tf[1])
     row["unfused_ms"] = cuda_time_ms(unfused)
     row["device_ms"], row["device_kernels_per_call"] = device_per_call(kernel, 20)
     row["unfused_device_ms"], row["unfused_kernels_per_call"] = device_per_call(unfused, 5)
     row.update(near_tie_mismatches=ties, threefry_draws=draws,
-               int32_ops_per_s=int_rate, u_fed_bound_ms=fed_row["bound_ms"])
+               threefry_instructions=tf[0], instructions_per_s=tf[1],
+               u_fed_bound_ms=fed_row["bound_ms"])
     log(f"segment_mrc_encode vs the unfused route it replaced (prng draw of u, u-fed "
         f"segment_logw, Gumbel draw, logs, argmax, gather): kernel {row['ms']:.4f} ms "
         f"(device {row['device_ms']:.4f} ms in {row['device_kernels_per_call']:.1f} kernels "
         f"per call) vs unfused {row['unfused_ms']:.4f} ms (device "
         f"{row['unfused_device_ms']:.4f} ms in {row['unfused_kernels_per_call']:.1f} kernels "
         f"per call); keyed bound {row['bound_ms']:.4f} ms ({row['bound_by']}: {draws} draws x "
-        f"{THREEFRY_INT_OPS} INT32 ops at {int_rate:.3e}/s), u-fed bound "
+        f"{tf[0]} SASS instructions at {tf[1]:.3e}/s), u-fed bound "
         f"{fed_row['bound_ms']:.4f} ms ({fed_row['bound_by']})")
     return row
 
 
-def check_client_key_encode(payload, priors, kt, seg, n_seg, int_rate):
+def check_client_key_encode(payload, priors, kt, seg, n_seg, tf):
     """The keyed kernel under per-client keys, at PR adaptive's uplink call
     of a round (the 10 clients' private keys ``client_key(kt, i)``, n_is =
     64, the round-0 plan), at one client, degenerate segmentations and
@@ -637,15 +738,140 @@ def check_client_key_encode(payload, priors, kt, seg, n_seg, int_rate):
     draws = n * 64 * d + n * 64 * n_seg
     nbytes = 4 * (3 * n * d + d + n * d + n * 64 * n_seg) + 8 * (n * n_seg + 2 * n + 2 * n)
     row = timed_row("segment_mrc_encode, client keys", (n, 64, d, n_seg), err, kernel, plain,
-                    None, nbytes, draws * THREEFRY_INT_OPS, int_rate)
+                    None, nbytes, draws * tf[0], tf[1])
     row["device_ms"], row["device_kernels_per_call"] = device_per_call(kernel, 20)
-    row.update(near_tie_mismatches=ties, threefry_draws=draws, int32_ops_per_s=int_rate)
+    row.update(near_tie_mismatches=ties, threefry_draws=draws, threefry_instructions=tf[0],
+               instructions_per_s=tf[1])
     log(f"segment_mrc_encode, client keys ({n}, 64, {d}, {n_seg}): kernel {row['ms']:.4f} ms "
         f"(device {row['device_ms']:.4f} ms in {row['device_kernels_per_call']:.1f} kernels "
         f"per call), plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']}: {draws} draws x {THREEFRY_INT_OPS} INT32 ops); a shared key "
+        f"({row['bound_by']}: {draws} draws x {tf[0]} SASS instructions); a shared key "
         f"repeated per client gives the shared form's logW, indices and sample bit for bit")
     return row
+
+
+def fixed_encode_inputs(payload, priors, size):
+    """The fixed path's uplink encode of a round on the round-0 inputs: the
+    clients' selection keys (10, 2) and the clipped priors and log-ratio
+    coefficients in blocks, (10, d / size, size)."""
+    n = payload.shape[0]
+    qb = channels.to_blocks(clip01(payload), size)
+    pb = channels.to_blocks(clip01(priors), size)
+    a, b = log_ratio_coeffs(qb, pb)
+    sels = prng.split(prng.PRNGKey(size, device="cuda"), n)
+    return sels, clip01(pb).contiguous(), a.contiguous(), b.contiguous()
+
+
+def cfl_encode_inputs(seed, n=10, d=28160, size=16):
+    """The CFL uplink's encode: stochastic-sign posteriors of seeded deltas
+    against Ber(1/2), (10, 1760, 16), and the clients' selection keys."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    delta = torch.randn(n, d, generator=gen, device="cuda")
+    qb = channels.to_blocks(stochastic_sign(delta, temperature=mean_abs(delta) + 1e-12).q, size)
+    pb = torch.full_like(qb, 0.5)
+    a, b = log_ratio_coeffs(qb, pb)
+    sels = prng.split(prng.PRNGKey(seed, device="cuda"), n)
+    return sels, clip01(pb).contiguous(), a.contiguous(), b.contiguous()
+
+
+def check_fixed_case(label, key, sels, pc, a, b, nis):
+    """The keyed kernel through ``ops.mrc_fixed_encode`` (``key`` (2,) or
+    one per client): logW bit-identical to the u-fed kernel fed prng's
+    candidates of the same key(s), within the sums' bound of the plain
+    version; indices equal to the plain version's but at near-ties (counted,
+    each below NEAR_TIE); the sample exact where the indices agree and equal
+    to the decoder's regeneration.  Returns (max |err| of logW, near-tie
+    mismatches)."""
+    idx, sample, logw = launched_once(ops.mrc_fixed_encode, key, sels, pc, a, b, nis)
+    lead, (nb, s) = pc.shape[:-2], pc.shape[-2:]
+    x = (mrc_weights.block_candidates(key, nb, nis, s) < pc[..., None, :]).to(torch.float32)
+    fed = mrc_weights.mrc_logw_cuda(x.reshape(-1, nis, s), a.reshape(-1, s),
+                                    b.reshape(-1, s)).reshape(lead + (nb, nis))
+    del x
+    if not torch.equal(logw, fed):
+        raise AssertionError(f"mrc_fixed_encode {label}: keyed and u-fed logW differ "
+                             f"(max |diff| {(logw - fed).abs().max().item()})")
+    w_idx, w_sample, w_logw = mrc_weights.mrc_fixed_encode_ref(key, sels, pc, a, b, nis)
+    mag = (a.abs().sum(-1) + b.abs().sum(-1))[..., None].expand_as(w_logw)
+    err = assert_close_sums(f"mrc_fixed_encode logW {label}", logw, w_logw, mag)
+    score = torch.sort(w_logw + mrc_weights.block_gumbel(sels, nb, nis), dim=-1).values
+    gap = score[..., -1] - score[..., -2] if nis > 1 else torch.full_like(score[..., 0], np.inf)
+    diff = idx != w_idx
+    worst = float(gap[diff].max()) if bool(diff.any()) else 0.0
+    if worst >= NEAR_TIE:
+        raise AssertionError(f"mrc_fixed_encode {label}: index differs where the top-2 gap "
+                             f"is {worst}")
+    if not torch.equal(sample[~diff], w_sample[~diff]) \
+            or not torch.equal(mrc.decode_fixed(key, idx, pc, n_is=nis), sample):
+        raise AssertionError(f"mrc_fixed_encode {label}: sample differs from the plain "
+                             "route's or from the decoder's")
+    log(f"mrc_fixed_encode {label}: {tuple(pc.shape)}, n_is {nis}, key {tuple(key.shape)}: "
+        f"logW bit-identical to the u-fed kernel; max|err| vs plain {err:.3e}; near-tie "
+        f"index mismatches {int(diff.sum())} of {diff.numel()} (largest top-2 gap among "
+        f"them {worst:.3e}, bound {NEAR_TIE}); sample exact where the indices agree")
+    return err, int(diff.sum())
+
+
+def time_fixed_encode(label, key, sels, pc, a, b, nis, err, ties, tf):
+    """The keyed kernel against its plain version, the unfused route it
+    replaced (prng draw, ``ops.mrc_logw``, Gumbel draw, logs, argmax,
+    gather) and its bound: threefry's instructions for the candidate
+    draws (once for the cohort under a shared key, once per client under
+    client keys) and the Gumbel draws, or the bytes of p, a, b, logW, the
+    indices and the sample."""
+    c, nb, s = pc.shape
+    kernel = lambda: ops.mrc_fixed_encode(key, sels, pc, a, b, nis)  # noqa: E731
+    plain = lambda: mrc_weights.mrc_fixed_encode_ref(key, sels, pc, a, b, nis)  # noqa: E731
+    unfused = lambda: mrc_weights.mrc_fixed_encode_ref(  # noqa: E731
+        key, sels, pc, a, b, nis, logw_fn=ops.mrc_logw)
+    draws = (c if key.dim() == 2 else 1) * nb * nis * s + c * nb * nis
+    nbytes = 4 * (4 * c * nb * s + c * nb * nis) + 8 * (c * nb + key.numel() + sels.numel())
+    row = timed_row(f"mrc_fixed_encode {label}", (c, nb, nis, s), err, kernel, plain, None,
+                    nbytes, draws * tf[0], tf[1], reps=20)
+    row["unfused_ms"] = cuda_time_ms(unfused, reps=20)
+    row["device_ms"], row["device_kernels_per_call"] = device_per_call(kernel, 20)
+    row["unfused_device_ms"], row["unfused_kernels_per_call"] = device_per_call(unfused, 5)
+    row.update(key_shape=list(key.shape), near_tie_mismatches=ties, threefry_draws=draws,
+               threefry_instructions=tf[0], instructions_per_s=tf[1])
+    log(f"mrc_fixed_encode {label} ({c}, {nb}, {nis}, {s}), key {tuple(key.shape)}: kernel "
+        f"{row['ms']:.4f} ms (device {row['device_ms']:.4f} ms in "
+        f"{row['device_kernels_per_call']:.1f} kernels per call) vs unfused "
+        f"{row['unfused_ms']:.4f} ms (device {row['unfused_device_ms']:.4f} ms in "
+        f"{row['unfused_kernels_per_call']:.1f} kernels per call), plain "
+        f"{row['plain_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms ({row['bound_by']}: {draws} "
+        f"draws x {tf[0]} SASS instructions at {tf[1]:.3e}/s; {nbytes} B); "
+        f"{row['ms'] / row['bound_ms']:.2f}x its bound")
+    return row
+
+
+def check_fixed_encode(payload, priors, kt, tf):
+    """The keyed fixed-block kernel at the main paths' calls -- GR's uplink
+    (shared key, (10, 220, 128), n_is 64), PR's (the clients' private keys)
+    and CFL's (shared key, (10, 1760, 16) against Ber(1/2), n_is 256) --
+    and at ragged shapes; the three path shapes timed."""
+    n = payload.shape[0]
+    sels, pc, a, b = fixed_encode_inputs(payload, priors, 128)
+    keys = mrc.client_key(kt, torch.arange(n, device="cuda"))
+    rows = {}
+    for label, key in (("GR, shared key", kt), ("PR uplink, client keys", keys)):
+        err, ties = check_fixed_case(label, key, sels, pc, a, b, 64)
+        rows[label] = time_fixed_encode(label, key, sels, pc, a, b, 64, err, ties, tf)
+    csels, cpc, ca, cb = cfl_encode_inputs(40)
+    err, ties = check_fixed_case("CFL, shared key", kt, csels, cpc, ca, cb, 256)
+    rows["CFL"] = time_fixed_encode("CFL, shared key", kt, csels, cpc, ca, cb, 256, err, ties, tf)
+    check_fixed_case("CFL, client keys", keys, csels, cpc, ca, cb, 256)
+    check_fixed_case("GR-Reconst broadcast, (B, S) and a (2,) selection key", kt,
+                     prng.fold_in(kt, 4), pc[0], a[0], b[0], 64)
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    for cl, nb, s, nis in [(3, 7, 7, 33), (2, 5, 100, 48), (4, 3, 513, 20), (17, 9, 16, 40),
+                           (2, 11, 1, 5)]:
+        qq, pp = (torch.rand(cl, nb, s, generator=gen, device="cuda") for _ in range(2))
+        aa, bb = (t.contiguous() for t in log_ratio_coeffs(qq, pp))
+        ss = prng.split(prng.PRNGKey(s, device="cuda"), cl)
+        for key in (kt, mrc.client_key(kt, torch.arange(cl, device="cuda"))):
+            check_fixed_case(f"ragged {cl} clients", key, ss, clip01(pp).contiguous(), aa, bb,
+                             nis)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -699,12 +925,12 @@ def check_path(name, launches, plans, out):
     n, d = c["n_clients"], int(out["theta"].shape[0])
     expect = {k: 0 for k in KERNELS}
     if name == "fixed":
-        expect["mrc_logw"] = ROUNDS
+        expect["mrc_fixed_encode"] = ROUNDS
         plans = [(c["block_size"], -(-d // c["block_size"]), None, 0.0)] * ROUNDS
     elif name == "adaptive":
         expect["segment_mrc_encode"] = expect["bernoulli_kl_profile"] = ROUNDS
     else:
-        expect["mrc_logw"] = expect["bernoulli_kl_total"] = ROUNDS
+        expect["mrc_fixed_encode"] = expect["bernoulli_kl_total"] = ROUNDS
     if d != 28160:
         raise AssertionError(f"not the full-width model: d {d}")
     if launches != expect:
@@ -779,7 +1005,7 @@ def check_variant(label, launches, plans, out, rounds=VARIANT_ROUNDS):
         expect["segment_mrc_encode"] = rounds * (1 + N_DL)
         expect["bernoulli_kl_profile"] = rounds
     else:
-        expect["mrc_logw"] = rounds * (1 + N_DL)
+        expect["mrc_fixed_encode"] = rounds * (1 + N_DL)
     if d != 28160 or launches != expect:
         raise AssertionError(f"variant {label}: d {d}, launches {launches}, expected {expect}")
     sched = out["active_schedule"]
@@ -843,10 +1069,10 @@ def run_cfl(rounds=CFL_ROUNDS):
 
 
 def check_cfl(launches, out, rounds=CFL_ROUNDS):
-    """One ``mrc_logw`` launch a round and nothing else; the reference's
-    bits and bpp; a finite model that every client tracks."""
+    """One ``mrc_fixed_encode`` launch a round and nothing else; the
+    reference's bits and bpp; a finite model that every client tracks."""
     expect = {k: 0 for k in KERNELS}
-    expect["mrc_logw"] = rounds
+    expect["mrc_fixed_encode"] = rounds
     theta, th = out["theta"], out["theta_hat"]
     if theta.shape != (28160,) or launches != expect:
         raise AssertionError(f"CFL: d {tuple(theta.shape)}, launches {launches}, "
@@ -962,15 +1188,16 @@ def phase_variants_vs_cpu(payload, priors, kt, seg, n_seg):
     """One round of each variant channel's MRC indices, card vs CPU, on the
     round-0 inputs: the PR uplinks (private keys) and the PR downlink on a
     cohort of 3 (so that the CPU's int64 threefry stays within seconds),
-    the GR-Reconst and PR-SplitDL downlinks over all 10 clients; one
-    conveyed sample each.  An index may flip only where the card's and the
+    the GR uplink and the GR-Reconst and PR-SplitDL downlinks over all 10
+    clients; one conveyed sample each.  An index may flip only where the card's and the
     CPU's sums round differently (MIN_INDEX_MATCH, as above)."""
     n, d = payload.shape
     active = np.linspace(0, n - 1, 3).astype(np.int64)     # [0, 4, 9] of 10
     fixed = BlockPlan(size=128, n_blocks=-(-d // 128), seg_ids=None, overhead_bits=0.0)
     segs = BlockPlan(size=None, n_blocks=n_seg, seg_ids=seg, overhead_bits=0.0)
     target = mrc.sample_mean(payload)
-    cases = [("PR uplink, fixed", channels.MRCFixedChannel(n_is=64, shared=False), fixed, True),
+    cases = [("GR uplink, fixed", channels.MRCFixedChannel(n_is=64, shared=True), fixed, False),
+             ("PR uplink, fixed", channels.MRCFixedChannel(n_is=64, shared=False), fixed, True),
              ("PR uplink, adaptive", channels.MRCAdaptiveChannel(n_is=64, shared=False), segs,
               True),
              ("PR downlink, fixed", channels.MRCPrivateDownlink(n_is=64), fixed, True),
@@ -1091,10 +1318,11 @@ def phase_profile(name, rounds: int, unfused: bool = False):
     """Device time by kernel over ``rounds`` rounds of one path, and the
     device's idle share of an unprofiled steady round (the mean of rounds
     2-ROUNDS of an unprofiled run; the profiler slows the host many-fold).
-    ``unfused``: the adaptive uplink takes the route the keyed kernel
-    replaced (``seg_logw_fn=ops.segment_logw``), for the before/after.  A
-    name of ``VARIANTS`` profiles that variant path (n_dl = 10); the peak
-    device memory is that of the unprofiled run."""
+    ``unfused``: the encoders take the routes the fused ones replaced (the
+    adaptive uplink ``seg_logw_fn=ops.segment_logw``, the fixed-block codec
+    under ``unfused_fixed_route``), for the before/after.  A name of
+    ``VARIANTS`` profiles that variant path (n_dl = 10); the peak device
+    memory is that of the unprofiled run."""
     run_kw = {}
     if name in VARIANTS:
         variant, kind, part, cohort_rng = VARIANTS[name]
@@ -1105,17 +1333,39 @@ def phase_profile(name, rounds: int, unfused: bool = False):
         run_kw = {"cohort_rng": cohort_rng}
     else:
         task, spec, shards = quickstart.build("cuda", dict(quickstart.CONFIG, allocation=name))
-    if unfused:
+    if not unfused:
+        return profile_engine(name, FLEngine(task, spec), shards, rounds, run_kw)
+    if isinstance(spec.uplink, channels.MRCAdaptiveChannel):
         spec.uplink.seg_logw_fn = ops.segment_logw_fn()
-        name = f"{name} (unfused segment route)"
-    return profile_engine(name, FLEngine(task, spec), shards, rounds, run_kw)
+    with unfused_fixed_route():
+        return profile_engine(f"{name} (unfused route)", FLEngine(task, spec), shards, rounds,
+                              run_kw)
 
 
-def profile_cfl(rounds: int):
-    """``phase_profile`` of the BiCompFL-GR-CFL path (rounds 2-3 steady)."""
+def profile_cfl(rounds: int, unfused: bool = False):
+    """``phase_profile`` of the BiCompFL-GR-CFL path (rounds 2-3 steady);
+    ``unfused``: the uplink's encode under ``unfused_fixed_route``."""
     task, theta0, shards = cfl_gradient_compression.build("cuda")
-    return profile_engine("BiCompFL-GR-CFL", FLEngine(task, cfl_spec()), shards, rounds,
-                          {"theta0": theta0}, steady_rounds=CFL_ROUNDS)
+    with unfused_fixed_route() if unfused else contextlib.nullcontext():
+        return profile_engine("BiCompFL-GR-CFL" + (" (unfused route)" if unfused else ""),
+                              FLEngine(task, cfl_spec()), shards, rounds, {"theta0": theta0},
+                              steady_rounds=CFL_ROUNDS)
+
+
+@contextlib.contextmanager
+def unfused_fixed_route():
+    """The fixed-block codec's encoder (``ops.mrc_fixed_encode``, which
+    ``core.mrc.encode_fixed`` calls) pointed at the route the fused kernel
+    replaced: prng's candidates weighed by the u-fed ``ops.mrc_logw``, then
+    the Gumbel draw, argmax and gather.  The before of the profiles'
+    before/after; the launch counts are not read inside."""
+    fused = ops.mrc_fixed_encode
+    ops.mrc_fixed_encode = lambda *args: mrc_weights.mrc_fixed_encode_ref(  # noqa: E731
+        *args, logw_fn=ops.mrc_logw)
+    try:
+        yield
+    finally:
+        ops.mrc_fixed_encode = fused
 
 
 def profile_engine(name, engine, shards, rounds: int, run_kw, steady_rounds=ROUNDS):
@@ -1139,7 +1389,8 @@ def profile_engine(name, engine, shards, rounds: int, run_kw, steady_rounds=ROUN
         f"steady round {steady_ms:.3f} ms unprofiled -> device idle share "
         f"{1 - busy_ms / steady_ms:.4f}; peak device memory {peak / 2**20:.1f} MiB")
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
-    own = ("mrc_logw_kernel", "kl_rows", "kl_cols", "seg_pass", "seg_select")
+    own = ("mrc_logw_kernel", "mrc_encode_kernel", "kl_rows", "kl_cols", "seg_pass",
+           "seg_select")
     for i, e in enumerate(ranked):
         if i < 10 or any(k in e.key for k in own):
             log(f"  {e.self_device_time_total / rounds / 1e3:8.3f} ms/round  "
@@ -1416,9 +1667,9 @@ def main() -> int:
     sm_mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                                    "--format=csv,noheader,nounits"], capture_output=True,
                                   text=True, check=True).stdout.split()[0])
-    int_rate = SMS * INT32_LANES_PER_SM * sm_mhz * 1e6
-    log(f"max SM clock {sm_mhz:.0f} MHz: {int_rate:.3e} INT32 operations/s on "
-        f"{SMS} SMs x {INT32_LANES_PER_SM} lanes")
+    issue_rate = SMS * ISSUE_LANES_PER_SM * sm_mhz * 1e6
+    log(f"max SM clock {sm_mhz:.0f} MHz: {issue_rate:.3e} thread instructions/s issued on "
+        f"{SMS} SMs x {ISSUE_LANES_PER_SM} lanes")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
@@ -1437,9 +1688,15 @@ def main() -> int:
     log(f"flash_attn library: {hgmma} HGMMA instructions (cuobjdump -sass)")
     if not hgmma:
         raise AssertionError("the flash_attn library issues no wgmma (no HGMMA in its SASS)")
+    n_draw, by_code = threefry_instructions()
+    tf = (n_draw, issue_rate)
+    log(f"threefry draw (uniform_at, csrc/common.cuh): {n_draw} SASS instructions "
+        f"(cuobjdump -sass of the probe kernels); the draw loop by opcode: {by_code}")
 
     # Phase 3.
-    main_row = check_mrc_logw((2200, 64, 128), seed=1)
+    t3 = time.perf_counter()
+    main_row = check_mrc_logw((2200, 64, 128), seed=1, device=True)
+    cfl_row = check_mrc_logw(CFL_LOGW_SHAPE, seed=30, device=True)
     check_mrc_logw((7, 48, 100), seed=2, timed=False)
     check_mrc_logw((5, 33, 7), seed=3, timed=False)
     check_mrc_logw((550, 64, 512), seed=4, timed=False)
@@ -1448,8 +1705,12 @@ def main() -> int:
     profile = bernoulli_kl.profile_ref(payload, clip01(priors)).cpu().numpy()
     _, n_seg, seg, _ = AdaptiveAllocation(n_is=64).plan(profile, payload.shape[1])
     seg_row = check_segment_logw(payload, priors, kt, seg, n_seg)
-    enc_row = check_segment_encode(payload, priors, kt, seg, n_seg, int_rate, seg_row)
-    ck_row = check_client_key_encode(payload, priors, kt, seg, n_seg, int_rate)
+    enc_row = check_segment_encode(payload, priors, kt, seg, n_seg, tf, seg_row)
+    ck_row = check_client_key_encode(payload, priors, kt, seg, n_seg, tf)
+    t_fixed = time.perf_counter()
+    fixed_rows = check_fixed_encode(payload, priors, kt, tf)
+    t_fixed = time.perf_counter() - t_fixed
+    t3 = time.perf_counter() - t3
 
     # Phase 4.
     runs = {}
@@ -1459,6 +1720,9 @@ def main() -> int:
     avg_sizes = sorted({pl[0] for pl in runs["adaptive-avg"][1]})
     n = quickstart.CONFIG["n_clients"]
     avg_rows = [check_mrc_logw((n * (-(-28160 // s)), 64, s), seed=10 + s) for s in avg_sizes]
+    for size in avg_sizes:
+        sels, pc, a, b = fixed_encode_inputs(payload, priors, size)
+        check_fixed_case(f"Adaptive-Avg's blocks of {size}", kt, sels, pc, a, b, 64)
     t_var = time.perf_counter()
     peaks = {}
     for label in VARIANTS:
@@ -1471,7 +1735,6 @@ def main() -> int:
     check_cfl(cfl_launches, cfl_out)
     runs["cfl"] = (cfl_launches, None, cfl_out)
     peaks["cfl"] = cfl_peak
-    cfl_row = check_mrc_logw(CFL_LOGW_SHAPE, seed=30, device=True)
     runs.update(phase_baselines())
     t_cfl = time.perf_counter() - t_cfl
 
@@ -1487,13 +1750,17 @@ def main() -> int:
     # Phase 6.
     t6 = time.perf_counter()
     profiles = {"fixed": phase_profile("fixed", 2),
+                "fixed (unfused route)": phase_profile("fixed", 2, unfused=True),
                 "adaptive": phase_profile("adaptive", 1),
-                "adaptive (unfused segment route)": phase_profile("adaptive", 1, unfused=True),
+                "adaptive (unfused route)": phase_profile("adaptive", 1, unfused=True),
                 "adaptive-avg": phase_profile("adaptive-avg", 1),
                 **{label: phase_profile(label, 1) for label in VARIANTS},
-                "BiCompFL-GR-CFL": profile_cfl(1)}
+                "PR fixed (unfused route)": phase_profile("PR fixed", 1, unfused=True),
+                "BiCompFL-GR-CFL": profile_cfl(1),
+                "BiCompFL-GR-CFL (unfused route)": profile_cfl(1, unfused=True)}
     t6 = time.perf_counter() - t6
-    log(f"variant phases' seconds: paths {t_var:.1f} (peak device memory MiB "
+    log(f"variant phases' seconds: kernel checks {t3:.1f} (fixed-block encoder "
+        f"{t_fixed:.1f}), paths {t_var:.1f} (peak device memory MiB "
         f"{ {k: round(v / 2**20, 1) for k, v in peaks.items()} }), card vs cpu {t5:.1f}, "
         f"profiles (all paths) {t6:.1f}; CFL and baselines: paths {t_cfl:.1f}, card vs cpu "
         f"{t5c:.1f}")
@@ -1519,14 +1786,31 @@ def main() -> int:
         return {p: sum(runs[p][0][k] for k in names) for p in (paths or runs)}
 
     shared_paths = [p for p in runs if p != "PR adaptive"]   # PR's keys are per client
+    client_key_paths = ["PR fixed", "PR fixed p=0.5 jax cohorts", "PR-SplitDL fixed"]
+    gr_fixed_paths = [p for p in runs if p not in client_key_paths + ["cfl"]]
 
     def by_model(name):
         return {**{f"{arch} prefill": prefill[arch][name] for arch in MODELS},
                 **{f"{arch} serve": served[arch][name] for arch in MODELS}}
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    fixed_extra = {label: {k: v for k, v in row.items() if k not in keys}
+                   for label, row in fixed_rows.items()}
     rows = [("mrc_logw", "mrc_logw", "src/repro/kernels/mrc_weights.py:71", main_row,
-             by_path("mrc_logw"), {"adaptive_avg_shapes": avg_rows, "cfl_shape": cfl_row}),
+             by_path("mrc_logw"), {"form": "u-fed", "adaptive_avg_shapes": avg_rows,
+                                   "cfl_shape": cfl_row}),
+            ("mrc_fixed_encode", "mrc_logw", "src/repro/kernels/mrc_weights.py:71",
+             fixed_rows["GR, shared key"], by_path("mrc_fixed_encode", paths=gr_fixed_paths),
+             {"form": "keyed, one key shared by the clients",
+              **fixed_extra["GR, shared key"]}),
+            ("mrc_fixed_encode_client_keys", "mrc_logw", "src/repro/kernels/mrc_weights.py:71",
+             fixed_rows["PR uplink, client keys"],
+             by_path("mrc_fixed_encode", paths=client_key_paths),
+             {"form": "keyed, one key per client", **fixed_extra["PR uplink, client keys"]}),
+            ("mrc_fixed_encode_cfl", "mrc_logw", "src/repro/kernels/mrc_weights.py:71",
+             fixed_rows["CFL"], by_path("mrc_fixed_encode", paths=["cfl"]),
+             {"form": "keyed, one key shared by the clients, Ber(1/2) prior",
+              **fixed_extra["CFL"]}),
             ("bernoulli_kl", "bernoulli_kl", "src/repro/kernels/bernoulli_kl.py:46",
              kl_rows["profile"],
              by_path("bernoulli_kl", "bernoulli_kl_total", "bernoulli_kl_profile"),
@@ -1553,6 +1837,11 @@ def main() -> int:
                 "launches": sum(per_path.values()), "launches_by_path": per_path,
                 **{k: row[k] for k in keys}, **extra}
                for name, src, replaces, row, per_path, extra in rows]
+    for k in kernels:   # a bound is the least time the card could take
+        measured = [t for t in (k["ms"], k.get("device_ms")) if t]
+        if min(measured) < k["bound_ms"]:
+            raise AssertionError(f"{k['name']}: measured {min(measured):.4f} ms is below its "
+                                 f"bound {k['bound_ms']:.4f} ms: the bound is not a bound")
     log(f"FL profiles: {json.dumps(profiles)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

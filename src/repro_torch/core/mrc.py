@@ -17,8 +17,11 @@ Batching replaces ``vmap``: ``q`` and ``p`` are ``(N..., B, S)`` with any
 leading batch axes (the cohort), and a key is either one key ``(2,)``
 shared by the whole batch (the GR variant's common candidates) or one key
 per batch element ``(N..., 2)`` (the PR variants' private candidates), in
-both codecs.  The importance weights of the whole batch
-go through ONE ``logw_fn`` call of shape ``(prod(N)*B, n_is, S)`` (one
+both codecs.  By default each codec's whole batch is one call of its
+fused encoder (``kernels.ops.mrc_fixed_encode``, ``kernels.ops
+.segment_mrc_encode``: one kernel on the card, which draws the candidates
+in place).  Given a hook, the importance weights of the whole batch go
+through ONE ``logw_fn`` call of shape ``(prod(N)*B, n_is, S)`` (one
 ``seg_logw_fn`` call for the segment codec, one per element under
 per-element keys); the indices do not depend on how the blocks are
 batched.
@@ -32,7 +35,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.kernels import ops
-from repro_torch.kernels.mrc_weights import mrc_logw_ref
+from repro_torch.kernels.mrc_weights import block_keys, mrc_fixed_encode_ref, mrc_logw_ref
 from repro_torch.kernels.segment_logw import segment_logw_ref, segment_mrc_encode_ref
 
 from .bernoulli import clip01, log_ratio_coeffs
@@ -57,22 +60,10 @@ def sample_key(base: torch.Tensor, ell) -> torch.Tensor:
     return prng.fold_in(base, ell)
 
 
-def _block_keys(key: torch.Tensor, n_blocks: int) -> torch.Tensor:
-    """``fold_in(key, j)`` for every block j: ``(K..., 2)`` -> ``(K..., B, 2)``."""
-    ids = torch.arange(n_blocks, dtype=torch.int64, device=key.device)
-    return prng.fold_in(key[..., None, :], ids)
-
-
-def _block_candidates(shared_key: torch.Tensor, n_blocks: int, n_is: int,
-                      size: int) -> torch.Tensor:
-    """All candidate uniforms of every block: ``(K..., B, n_is, size)``."""
-    return prng.uniform(_block_keys(shared_key, n_blocks), (n_is, size))
-
-
 def _selected_candidate(shared_key: torch.Tensor, rows: torch.Tensor,
                         size: int) -> torch.Tensor:
     """The selected uniform row of every block: rows ``(N..., B)`` -> ``(N..., B, size)``."""
-    keys = _block_keys(shared_key, rows.shape[-1])
+    keys = block_keys(shared_key, rows.shape[-1])
     cols = torch.arange(size, dtype=torch.int64, device=rows.device)
     return prng.uniform_at(keys, rows.to(torch.int64)[..., None] * size + cols)
 
@@ -84,8 +75,9 @@ def _selected_candidate(shared_key: torch.Tensor, rows: torch.Tensor,
 LogWFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 # signature: (X: (nb, n_is, S) {0,1}, a: (nb, S), b: (nb, S)) -> (nb, n_is)
 
-# Plain importance log-weights, logW = X @ a + sum(b) (the reference's
-# jnp default); ``encode_fixed`` routes through ``kernels.ops.mrc_logw``.
+# Plain importance log-weights, logW = X @ a + sum(b), the reference's jnp
+# default.  Without a ``logw_fn``, ``encode_fixed`` runs the whole encoder
+# through ``kernels.ops.mrc_fixed_encode``.
 default_logw = mrc_logw_ref
 
 
@@ -112,11 +104,6 @@ def sample_mean(x: torch.Tensor) -> torch.Tensor:
     return total * torch.tensor(1.0 / x.shape[0], dtype=x.dtype, device=x.device)
 
 
-def _gumbel(select_key: torch.Tensor, n_blocks: int, n_is: int) -> torch.Tensor:
-    gu = prng.uniform(_block_keys(select_key, n_blocks), (n_is,))
-    return -torch.log(-torch.log(torch.clamp(gu, 1e-12, 1.0 - 1e-12)))
-
-
 def encode_fixed(shared_key: torch.Tensor, select_key: torch.Tensor,
                  q: torch.Tensor, p: torch.Tensor, *, n_is: int,
                  logw_fn: Optional[LogWFn] = None) -> MRCResult:
@@ -124,19 +111,30 @@ def encode_fixed(shared_key: torch.Tensor, select_key: torch.Tensor,
 
     Returns the transmitted indices and the sample the decoder will see
     (identical to what ``decode_fixed`` reconstructs from the indices).
-    ``logw_fn`` defaults to ``kernels.ops.mrc_logw``: the CUDA kernel for
-    tensors on the card, the plain version on the CPU.
+    Without ``logw_fn`` the whole encoder is ``kernels.ops
+    .mrc_fixed_encode``: on the card one kernel that draws the candidates in
+    place, on the CPU the plain version.  A ``logw_fn`` (e.g.
+    ``kernels.ops.mrc_logw_fn()``) takes the unfused route, with every
+    block's candidates drawn into an ``(N..., B, n_is, S)`` tensor and
+    weighed by it in one call.
     """
-    logw_impl = logw_fn if logw_fn is not None else ops.mrc_logw
-    B, S = q.shape[-2:]
     a, b = log_ratio_coeffs(q, p)                                  # (N..., B, S)
-    u = _block_candidates(shared_key, B, n_is, S)                  # (K..., B, n_is, S)
-    x = (u < clip01(p)[..., None, :]).to(torch.float32)           # (N..., B, n_is, S)
-    logw = logw_impl(x.reshape(-1, n_is, S), a.reshape(-1, S).contiguous(),
-                     b.reshape(-1, S).contiguous()).reshape(x.shape[:-1])
-    idx = torch.argmax(logw + _gumbel(select_key, B, n_is), dim=-1)  # (N..., B)
-    chosen = torch.take_along_dim(x, idx[..., None, None], dim=-2)[..., 0, :]
-    return MRCResult(indices=idx, sample=chosen)
+    n_blocks, s = a.shape[-2:]
+    lead = torch.broadcast_shapes(a.shape[:-2], select_key.shape[:-1],
+                                  shared_key.shape[:-1])
+
+    def flat(t, tail):  # (N..., *tail) -> (C, *tail), what the kernel takes
+        return t.expand(lead + tail).reshape((-1,) + tail).contiguous()
+
+    key = shared_key if shared_key.dim() == 1 else flat(shared_key, (2,))
+    args = (key, flat(select_key, (2,)), flat(clip01(p), (n_blocks, s)),
+            flat(a, (n_blocks, s)), flat(b, (n_blocks, s)), n_is)
+    if logw_fn is None:
+        idx, sample, _ = ops.mrc_fixed_encode(*args)
+    else:
+        idx, sample, _ = mrc_fixed_encode_ref(*args, logw_fn=logw_fn)
+    return MRCResult(indices=idx.reshape(lead + (n_blocks,)),
+                     sample=sample.reshape(lead + (n_blocks, s)))
 
 
 def decode_fixed(shared_key: torch.Tensor, indices: torch.Tensor,

@@ -174,8 +174,8 @@ class MRCFixedChannel(StatelessUplink):
     ``shared=True`` (GR): every client draws its candidates from the
     *common* round key; ``shared=False`` (PR): client i from its private
     ``client_key(kt, i)``.  The cohort's blocks are encoded in one batch:
-    one ``ops.mrc_logw`` call (one kernel launch on the card) per round and
-    conveyed sample.
+    one ``ops.mrc_fixed_encode`` call (one kernel launch on the card, which
+    draws the candidates in place) per round and conveyed sample.
     """
 
     n_is: int = 256
@@ -254,8 +254,8 @@ class QuantizedMRCUplink(StatelessUplink):
     conveys ``n_samples`` MRC samples against the uninformative prior on
     the common round key's candidates, and the server reconstructs the
     direction (2*q_hat - 1) * K.  The whole cohort is one batched encode:
-    one ``ops.mrc_logw`` call (one kernel launch on the card) per round and
-    conveyed sample.
+    one ``ops.mrc_fixed_encode`` call (one kernel launch on the card) per
+    round and conveyed sample.
     """
 
     n_is: int = 256

@@ -21,9 +21,9 @@ conventional FL (stochastic sign + MRC against the Ber(1/2) prior).
 Both build the scheme from the registry and run the shared
 :class:`~repro_torch.fl.engine.FLEngine` host loop on the task's device.
 The reference's ``chunk`` (a memory knob of its ``vmap``) and ``logw_fn``
-are left out: the port encodes a batch whole, through ``ops.mrc_logw``.
-So is ``CFLConfig.temperature``, which the reference never reads (K is
-always each client's mean |delta|).
+are left out: the port encodes a batch whole, through the fused encoder
+``ops.mrc_fixed_encode``.  So is ``CFLConfig.temperature``, which the
+reference never reads (K is always each client's mean |delta|).
 """
 from __future__ import annotations
 

@@ -5,10 +5,10 @@ Every named FL scheme is a factory returning an
 :class:`~repro_torch.fl.engine.EngineSpec`: the four BiCompFL variants,
 BiCompFL-GR-CFL and the seven conventional-FL baselines.  The reference's
 ``pallas_logw`` and ``segment_logw_pallas`` switches are gone: on the card
-the importance weights always go through the CUDA kernels
-(``kernels.ops.mrc_logw`` and the segment encoder
-``kernels.ops.segment_mrc_encode``, the codecs' defaults).  The reference's
-``fault_matrix`` and ``wire_scheme_ids`` come with the wire and fault slice.
+the encoders always go through the CUDA kernels (the fused encoders
+``kernels.ops.mrc_fixed_encode`` and ``kernels.ops.segment_mrc_encode``,
+the codecs' defaults).  The reference's ``fault_matrix`` and
+``wire_scheme_ids`` come with the wire and fault slice.
 """
 from __future__ import annotations
 

@@ -169,6 +169,19 @@ def check_cuda_inputs(name: str, ref, **tensors) -> None:
             raise ValueError(f"{name}: {tname} must be contiguous")
 
 
+def check_key(name: str, kname: str, key: torch.Tensor, shapes: tuple, ref) -> int:
+    """Check a threefry key (int64 words) against the allowed ``shapes``, on
+    ``ref``'s device and contiguous; returns its stride in int64 words
+    between clients: 0 for one (2,) key, 2 for one per client."""
+    if key.dtype != torch.int64:
+        raise TypeError(f"{name}: {kname} is {key.dtype}, expected int64 (uint32 words)")
+    if tuple(key.shape) not in shapes:
+        raise ValueError(f"{name}: {kname} {tuple(key.shape)} must be one of {shapes}")
+    if key.device != ref.device or not key.is_contiguous():
+        raise ValueError(f"{name}: {kname} must be contiguous on {ref.device}")
+    return 0 if key.dim() == 1 else 2
+
+
 def check_strided_inputs(name: str, tensors: dict, dtypes) -> None:
     """Checks shared by the model kernels' wrappers (which read their inputs
     through strides): one CUDA device, one of ``dtypes`` for all, unit

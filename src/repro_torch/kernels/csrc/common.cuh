@@ -1,11 +1,13 @@
 // Helpers shared by the port's kernels: f32 arithmetic on f32 or bf16
-// storage and a cheap 2^x (flash_attn.cu, rwkv_chunk.cu), and the
-// Threefry-2x32 generator of jax.random (segment_logw.cu).  Included by
-// their sources; the build hashes it with them (kernels/build.py), so an
-// edit here rebuilds every one of them.
+// storage and a cheap 2^x (flash_attn.cu, rwkv_chunk.cu); the
+// Threefry-2x32 generator of jax.random, cp.async staging and the argmax
+// order of torch.argmax (segment_logw.cu, mrc_logw.cu).  Included by their
+// sources; the build hashes it with them (kernels/build.py), so an edit
+// here rebuilds every one of them.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -29,9 +31,10 @@ __device__ __forceinline__ float ex2(float x) {
 // Threefry-2x32, 20 rounds, in native uint32 arithmetic: the block function
 // of repro_torch/prng.py (threefry2x32, _ROTATIONS, _PARITY, the key
 // schedule), which reproduces jax.random under partitionable threefry.
-// About 71 integer instructions: 20 rounds of add, rotate (one funnel
-// shift) and xor, and two adds for each of the 5 key injections.  Written
-// out with no arrays, so that everything stays in registers.
+// 20 rounds of add, rotate (one funnel shift) and xor, and the 5 key
+// injections: uniform_at compiles to 70 SASS instructions on sm_90a (adds
+// split between IADD3 and IMAD).  Written out with no arrays, so that
+// everything stays in registers.
 __device__ __forceinline__ void threefry_round(uint32_t& x0, uint32_t& x1, int r) {
   x0 += x1;
   x1 = __funnelshift_l(x1, x1, r) ^ x0;
@@ -83,6 +86,38 @@ __device__ __forceinline__ float uniform_at(uint2 key, uint32_t j) {
 // A threefry key held as the port holds it: two uint32 words in int64.
 __device__ __forceinline__ uint2 load_key(const long long* key) {
   return make_uint2(static_cast<uint32_t>(key[0]), static_cast<uint32_t>(key[1]));
+}
+
+// NaN-aware "a beats b" of torch.argmax: NaN is the maximum, and among
+// equal values the first index wins.  A reduction by it gives the same
+// index in any order.
+__device__ __forceinline__ bool beats(float a, int ia, float b, int ib) {
+  if (isnan(a)) return !isnan(b) || ia < ib;
+  if (isnan(b)) return false;
+  return a > b || (a == b && ia < ib);
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+inline bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
 }
 
 }  // namespace

@@ -41,10 +41,11 @@
 // Bound.  u-fed, at the adaptive path's shape (C = 10, NIS = 64,
 // D = 28160): u 7.2 MB + p, a, b 3.4 MB + seg and logW, ~10.7 MB, ~3.2 us
 // at 3.35 TB/s; memory-bound.  Keyed: ~3.5 MB of p, a, b, seg and outputs
-// (~1 us), but NIS * D = 1.8 M threefry draws of ~74 integer instructions
-// each (threefry2x32 and the float conversion) on 132 SMs x 64 INT32 lanes:
-// integer-bound, ~8 us at the card's clock; with per-client keys C times
-// the draws, ~81 us.
+// (~1 us), but NIS * D = 1.8 M threefry draws of 70 SASS instructions
+// each (threefry2x32 and the float conversion, as chip_smoke.py reads
+// them from a probe) at the issue ceiling of 128 thread instructions per
+// SM a clock: instruction-bound, ~3.8 us at the card's clock; with
+// per-client keys C times the draws, ~38 us.
 //
 // Design.
 //
@@ -114,25 +115,6 @@ constexpr int kMaxStage = 16;             // clients staged at a time
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int pad(int e) { return (e >> 4) * kPadStrip + (e & 15); }
-
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // First position in seg[0, n) whose id is >= s (seg is non-decreasing),
 // found by the whole warp: each step probes 32 evenly spaced positions and
@@ -473,14 +455,6 @@ seg_pass1(const float* __restrict__ u_in, const long long* __restrict__ key,
   }
 }
 
-// NaN-aware "a beats b" of torch.argmax: NaN is the maximum, and among
-// equal values the first index wins.
-__device__ __forceinline__ bool beats(float a, int ia, float b, int ib) {
-  if (isnan(a)) return !isnan(b) || ia < ib;
-  if (isnan(b)) return false;
-  return a > b || (a == b && ia < ib);
-}
-
 // Pass 2, one warp per (client, segment).  kKeyed: add the Gumbel noise of
 // select_key[c] and write the argmax to idx (C, n_seg).
 template <bool kKeyed>
@@ -557,8 +531,6 @@ seg_select(const long long* __restrict__ key, const long long* __restrict__ idx,
     sample[t] = x;
   }
 }
-
-bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0; }
 
 template <bool kKeyed>
 cudaError_t launch_pass1(const float* u, const long long* key, const float* p,

@@ -12,9 +12,9 @@ import torch
 
 from . import bernoulli_kl as _kl
 from . import flash_attn as _fa
+from . import mrc_weights as _mw
 from . import rwkv_chunk as _rw
 from . import segment_logw as _seg
-from .mrc_weights import mrc_logw_cuda, mrc_logw_ref
 
 
 def _route(fn, plain, kernel, t: torch.Tensor, *args):
@@ -30,10 +30,29 @@ def _route(fn, plain, kernel, t: torch.Tensor, *args):
 def mrc_logw(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """logW = X @ a + sum(b); x (NB, NIS, S), a/b (NB, S) -> (NB, NIS).
 
-    Drop-in ``logw_fn`` for ``repro_torch.core.mrc.encode_fixed`` (and its
-    default there).  NIS and S may be ragged: the kernel needs no padding.
+    Drop-in ``logw_fn`` for ``repro_torch.core.mrc.encode_fixed``.  NIS and
+    S may be ragged: the kernel needs no padding.  The codec's default
+    route is ``mrc_fixed_encode``, which draws the candidates in the kernel.
     """
-    return _route(mrc_logw, mrc_logw_ref, mrc_logw_cuda, x, x, a, b)
+    return _route(mrc_logw, _mw.mrc_logw_ref, _mw.mrc_logw_cuda, x, x, a, b)
+
+
+def mrc_fixed_encode(shared_key: torch.Tensor, select_key: torch.Tensor,
+                     pc: torch.Tensor, a: torch.Tensor, b: torch.Tensor, n_is: int):
+    """The fixed-block codec's whole encoder; shared_key (2,) or (C, 2),
+    select_key (C, 2) (or (2,) with (B, S) coefficients), pc/a/b (C, B, S)
+    -> (indices (C, B) int64, sample (C, B, S), logw (C, B, n_is)).
+
+    Candidate row i of block j of client c is ``uniform(fold_in(key, j),
+    (n_is, S))[i]``, key the one shared key or client c's own (the PR
+    variants' private candidates).  On the card one kernel launch draws the
+    candidates in place, weighs them, adds the Gumbel noise of
+    ``select_key``, takes the argmax and writes the chosen rows: the
+    candidates never reach memory.  ``core.mrc.encode_fixed`` calls it when
+    no ``logw_fn`` is given.
+    """
+    return _route(mrc_fixed_encode, _mw.mrc_fixed_encode_ref, _mw.mrc_fixed_encode_cuda, pc,
+                  shared_key, select_key, pc, a, b, n_is)
 
 
 def bernoulli_kl(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -135,14 +154,15 @@ def rwkv_time_mix(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   r, k, v, logw, u)
 
 
-for _fn in (mrc_logw, bernoulli_kl, bernoulli_kl_total, bernoulli_kl_profile,
-            segment_logw, segment_mrc_encode, segment_select, flash_attention,
-            rwkv_time_mix):
+for _fn in (mrc_logw, mrc_fixed_encode, bernoulli_kl, bernoulli_kl_total,
+            bernoulli_kl_profile, segment_logw, segment_mrc_encode, segment_select,
+            flash_attention, rwkv_time_mix):
     _fn.launches = 0
 
 
 def mrc_logw_fn():
-    """The ``logw_fn`` hook for ``encode_fixed`` (the kernel route)."""
+    """The ``logw_fn`` hook for ``encode_fixed`` (the u-fed kernel route);
+    its launches are counted on ``mrc_logw.launches``."""
     return mrc_logw
 
 

@@ -121,18 +121,6 @@ def _check_sizes(clients: int, nis: int, d: int, n_seg: int) -> None:
                          "out of range")
 
 
-def _check_key(name: str, key: torch.Tensor, shapes: tuple, ref: torch.Tensor) -> int:
-    """Check a key against the allowed ``shapes``; returns its stride in
-    int64 words between clients: 0 for one (2,) key, 2 for one per client."""
-    if key.dtype != torch.int64:
-        raise TypeError(f"{NAME}: {name} is {key.dtype}, expected int64 (uint32 words)")
-    if tuple(key.shape) not in shapes:
-        raise ValueError(f"{NAME}: {name} {tuple(key.shape)} must be one of {shapes}")
-    if key.device != ref.device or not key.is_contiguous():
-        raise ValueError(f"{NAME}: {name} must be contiguous on {ref.device}")
-    return 0 if key.dim() == 1 else 2
-
-
 def _coeffs(p: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> tuple:
     """(clients, d) of the (D,) or (C, D) p, a, b."""
     if p.dim() not in (1, 2) or a.shape != p.shape or b.shape != p.shape:
@@ -184,8 +172,8 @@ def segment_mrc_encode_cuda(shared_key: torch.Tensor, select_key: torch.Tensor,
     if tuple(seg_ids.shape) != (d,):
         raise ValueError(f"{NAME}: seg_ids {tuple(seg_ids.shape)} must be (D,) = ({d},)")
     build.check_cuda_inputs(NAME, pc, p=pc, a=a, b=b, seg_ids=seg_ids)
-    stride = _check_key("shared_key", shared_key, ((2,), tuple(lead) + (2,)), pc)
-    _check_key("select_key", select_key, (tuple(lead) + (2,),), pc)
+    stride = build.check_key(NAME, "shared_key", shared_key, ((2,), tuple(lead) + (2,)), pc)
+    build.check_key(NAME, "select_key", select_key, (tuple(lead) + (2,),), pc)
     nis, n_seg = int(n_is), int(n_seg)
     if nis <= 0 or d == 0:
         raise ValueError(f"{NAME}: n_is ({nis}) and D ({d}) must be positive")
@@ -216,7 +204,7 @@ def segment_select_cuda(shared_key: torch.Tensor, indices: torch.Tensor, pc: tor
         raise ValueError(f"{NAME}: indices {tuple(indices.shape)}, p {tuple(pc.shape)} "
                          f"and seg_ids {tuple(seg_ids.shape)} do not match")
     build.check_cuda_inputs(NAME, pc, p=pc, seg_ids=seg_ids)
-    stride = _check_key("shared_key", shared_key, ((2,), tuple(lead) + (2,)), pc)
+    stride = build.check_key(NAME, "shared_key", shared_key, ((2,), tuple(lead) + (2,)), pc)
     if indices.dtype != torch.int64 or indices.device != pc.device \
             or not indices.is_contiguous():
         raise ValueError(f"{NAME}: indices must be contiguous int64 on {pc.device}")

@@ -311,16 +311,26 @@ def test_quantized_uplink_and_aggregator_match_reference(seed, n, d, active, n_s
 
 
 def test_quantized_uplink_is_one_batched_encode(monkeypatch):
-    """The whole cohort goes through one ``mrc_logw`` call per conveyed
-    sample, at (n_act * B, n_is, S): the shape the card's kernel takes."""
-    from repro_torch.kernels import ops
-    calls = []
-    real = ops.mrc_logw
+    """The whole cohort goes through one ``mrc_fixed_encode`` call per
+    conveyed sample, at (n_act, B, S): the shape the card's fused kernel
+    takes.  The unfused route it replaced (the encoder's plain version
+    with ``logw_fn=ops.mrc_logw``) weighs (n_act * B, n_is, S) candidate
+    rows in one ``mrc_logw`` call per sample, with the same indices."""
+    from repro_torch.kernels import mrc_weights, ops
+    fused, calls = [], []
+    real_fused, real = ops.mrc_fixed_encode, ops.mrc_logw
+    monkeypatch.setattr(ops, "mrc_fixed_encode",
+                        lambda *args: fused.append(args[2].shape) or real_fused(*args))
     monkeypatch.setattr(ops, "mrc_logw", lambda x, a, b: calls.append(x.shape) or real(x, a, b))
     _, tctx = _ctxs(0, 5, 1472, np.arange(5))
-    tch.QuantizedMRCUplink(n_is=N_IS, n_samples=2)._transmit(
-        tctx, torch.tensor(_grad_like(0, (5, 1472))), None)
+    payload = torch.tensor(_grad_like(0, (5, 1472)))
+    idx = tch.QuantizedMRCUplink(n_is=N_IS, n_samples=2)._transmit(tctx, payload, None)[0]
+    assert fused == [(5, 92, BLOCK)] * 2 and calls == []
+    monkeypatch.setattr(ops, "mrc_fixed_encode", lambda *args: mrc_weights.mrc_fixed_encode_ref(
+        *args, logw_fn=ops.mrc_logw))
+    unfused = tch.QuantizedMRCUplink(n_is=N_IS, n_samples=2)._transmit(tctx, payload, None)[0]
     assert calls == [(5 * 92, N_IS, BLOCK)] * 2
+    assert torch.equal(idx, unfused)
 
 
 def test_relay_books_side_information(ref):

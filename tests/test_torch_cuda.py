@@ -51,7 +51,8 @@ def _logw_inputs(nb, nis, s, seed, device):
 
 
 @pytest.mark.parametrize("shape", [(2200, 64, 128), (7, 48, 100), (5, 33, 7),
-                                   (3, 1, 1), (4, 256, 4096)])
+                                   (3, 1, 1), (4, 256, 4096), (17600, 256, 16),
+                                   (9, 20, 33), (6, 70, 513)])
 def test_mrc_logw_kernel_matches_plain(cuda, shape):
     x, a, b = _logw_inputs(*shape, seed=sum(shape), device=cuda)
     got = mrc_logw_cuda(x, a, b)
@@ -446,6 +447,139 @@ def test_ops_client_keyed_encode_counts_one_launch(cuda):
     dec = mrc.decode_segments(keys, res.indices, pc, seg.cpu().numpy(), n_is=16)
     assert ops.segment_select.launches == before + 1
     assert torch.equal(dec, res.sample)
+
+
+# ---------------------------------------------------------------------------
+# The fused fixed-block encoder (ops.mrc_fixed_encode), keyed form of mrc_logw.
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import mrc_weights as mw  # noqa: E402
+
+# (clients, B, S, n_is): GR's and PR's encode, CFL's, GR-Reconst's broadcast,
+# and ragged shapes (S not a multiple of 4, S above 128, S = 1, more clients
+# than the kernel stages at once, odd n_is).
+FIXED_CASES = [(10, 220, 128, 64), (10, 1760, 16, 256), (1, 220, 128, 64), (3, 7, 7, 33),
+               (2, 5, 100, 48), (4, 3, 513, 20), (17, 9, 16, 40), (2, 11, 1, 5)]
+# Near-ties: a kernel index may differ from the plain route's only where
+# the plain route's top-2 gap of logW + gumbel is below this.
+FIXED_NEAR_TIE = 1e-4
+
+
+def _fixed_inputs(cuda, clients, n_blocks, s, key_kind, seed):
+    """Keys (shared (2,) or one per client), selection keys (C, 2), clipped
+    priors and coefficients (C, B, S)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = 0.05 + 0.9 * torch.rand(clients, n_blocks, s, generator=gen, device=cuda)
+    p = torch.clamp(q + 0.05 * torch.randn(clients, n_blocks, s, generator=gen, device=cuda),
+                    0.05, 0.95)
+    a, b = (t.contiguous() for t in log_ratio_coeffs(q, p))
+    key = prng.PRNGKey(seed, device=cuda)
+    if key_kind == "client":
+        key = mrc.client_key(key, torch.arange(clients, device=cuda))
+    sels = prng.split(prng.PRNGKey(seed + 1, device=cuda), clients)
+    return key, sels, clip01(p).contiguous(), a, b
+
+
+def _u_fed_fixed_logw(key, pc, a, b, nis):
+    """The u-fed kernel fed prng's candidates of ``key``: (C, B, n_is)."""
+    clients, n_blocks, s = pc.shape
+    u = mw.block_candidates(key, n_blocks, nis, s)
+    x = (u < pc[..., None, :]).to(torch.float32)
+    return mw.mrc_logw_cuda(x.reshape(-1, nis, s), a.reshape(-1, s),
+                            b.reshape(-1, s)).reshape(clients, n_blocks, nis)
+
+
+@pytest.mark.parametrize("key_kind", ["shared", "client"])
+@pytest.mark.parametrize("clients,n_blocks,s,nis", FIXED_CASES)
+def test_fixed_keyed_and_u_fed_kernels_give_identical_logw(cuda, clients, n_blocks, s, nis,
+                                                            key_kind):
+    """The keyed form draws the candidates in place; the u-fed form fed
+    prng's draw of the same key(s) gives bit-identical logW: the in-kernel
+    threefry is prng's exactly and both forms sum a row in one order."""
+    key, sels, pc, a, b = _fixed_inputs(cuda, clients, n_blocks, s, key_kind, s + nis)
+    _, _, logw = mw.mrc_fixed_encode_cuda(key, sels, pc, a, b, nis)
+    fed = _u_fed_fixed_logw(key, pc, a, b, nis)
+    torch.cuda.synchronize()
+    assert torch.equal(logw, fed)
+
+
+@pytest.mark.parametrize("key_kind", ["shared", "client"])
+@pytest.mark.parametrize("clients,n_blocks,s,nis", FIXED_CASES)
+def test_fixed_keyed_encode_matches_plain_on_the_card(cuda, clients, n_blocks, s, nis,
+                                                      key_kind):
+    """Indices equal the plain route's but at near-ties of logW + gumbel
+    (counted, each below FIXED_NEAR_TIE), the sample exact wherever they
+    agree, logW within the sums' tolerance, and the decoder's
+    regeneration of the chosen rows equal to the sample."""
+    key, sels, pc, a, b = _fixed_inputs(cuda, clients, n_blocks, s, key_kind, s + nis + 3)
+    idx, sample, logw = mw.mrc_fixed_encode_cuda(key, sels, pc, a, b, nis)
+    w_idx, w_sample, w_logw = mw.mrc_fixed_encode_ref(key, sels, pc, a, b, nis)
+    mag = (a.abs().sum(-1) + b.abs().sum(-1))[..., None].expand_as(w_logw)
+    _assert_sums_close(logw, w_logw, mag)
+    score = torch.sort(w_logw + mw.block_gumbel(sels, n_blocks, nis), dim=-1).values
+    gap = (score[..., -1] - score[..., -2]) if nis > 1 else torch.full_like(score[..., 0], 1e9)
+    diff = idx != w_idx
+    print(f"fixed encode {key_kind} ({clients}, {n_blocks}, {s}, {nis}): {int(diff.sum())} "
+          f"near-tie index mismatches of {diff.numel()}")
+    assert bool((gap[diff] < FIXED_NEAR_TIE).all())
+    assert torch.equal(sample[~diff], w_sample[~diff])
+    assert idx.dtype == torch.int64 and sample.dtype == torch.float32
+    assert bool(((idx >= 0) & (idx < nis)).all())
+    assert torch.equal(mrc.decode_fixed(key, idx, pc, n_is=nis), sample)
+
+
+def test_fixed_encode_is_deterministic_and_shares_one_draw(cuda):
+    """Two calls give the same bits; a shared key repeated per client gives
+    the shared form's results; a (B, S) target with a (2,) selection key
+    is the one-client batch."""
+    key, sels, pc, a, b = _fixed_inputs(cuda, 10, 1760, 16, "shared", 31)
+    first = mw.mrc_fixed_encode_cuda(key, sels, pc, a, b, 256)
+    second = mw.mrc_fixed_encode_cuda(key, sels, pc, a, b, 256)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    repeated = mw.mrc_fixed_encode_cuda(key.expand(10, 2).contiguous(), sels, pc, a, b, 256)
+    assert all(torch.equal(x, y) for x, y in zip(first, repeated))
+    one = mw.mrc_fixed_encode_cuda(key, sels[3], pc[3], a[3], b[3], 256)
+    assert all(torch.equal(x, y[3]) for x, y in zip(one, first))
+    x = (mw.block_candidates(key, 1760, 256, 16) < pc[..., None, :]).float()
+    fed = mw.mrc_logw_cuda(x.reshape(-1, 256, 16), a.reshape(-1, 16), b.reshape(-1, 16))
+    assert torch.equal(fed, mw.mrc_logw_cuda(x.reshape(-1, 256, 16), a.reshape(-1, 16),
+                                             b.reshape(-1, 16)))
+
+
+def test_ops_mrc_fixed_encode_counts_one_launch(cuda):
+    key, sels, pc, a, b = _fixed_inputs(cuda, 4, 30, 16, "client", 32)
+    before, fed = ops.mrc_fixed_encode.launches, ops.mrc_logw.launches
+    ops.mrc_fixed_encode(key, sels, pc, a, b, 32)
+    assert ops.mrc_fixed_encode.launches == before + 1 and ops.mrc_logw.launches == fed
+    res = mrc.encode_fixed(key, sels, pc, pc, n_is=32)
+    assert ops.mrc_fixed_encode.launches == before + 2 and ops.mrc_logw.launches == fed
+    hooked = mrc.encode_fixed(key, sels, pc, pc, n_is=32, logw_fn=ops.mrc_logw_fn())
+    assert ops.mrc_fixed_encode.launches == before + 2 and ops.mrc_logw.launches == fed + 1
+    assert tuple(res.indices.shape) == (4, 30) and tuple(hooked.indices.shape) == (4, 30)
+
+
+def test_fixed_encode_wrapper_refuses_bad_input(cuda):
+    key, sels, pc, a, b = _fixed_inputs(cuda, 3, 8, 16, "shared", 33)
+    keys = mrc.client_key(key, torch.arange(3, device=cuda))
+    for bad_key in (key.int(), prng.split(key, 2), keys[None], keys.cpu(), keys[:, :1]):
+        with pytest.raises((ValueError, TypeError)):
+            mw.mrc_fixed_encode_cuda(bad_key, sels, pc, a, b, 8)
+    for bad_sel in (sels[:2], sels[0], sels.cpu(), sels.int()):
+        with pytest.raises((ValueError, TypeError)):
+            mw.mrc_fixed_encode_cuda(key, bad_sel, pc, a, b, 8)
+    with pytest.raises(TypeError):
+        mw.mrc_fixed_encode_cuda(key, sels, pc.double(), a, b, 8)
+    with pytest.raises(ValueError):
+        mw.mrc_fixed_encode_cuda(key, sels, pc.transpose(1, 2).contiguous().transpose(1, 2),
+                                 a, b, 8)                                # not contiguous
+    with pytest.raises(ValueError):
+        mw.mrc_fixed_encode_cuda(key, sels, pc, a[:, :4].contiguous(), b, 8)
+    for nis in (0, -1):
+        with pytest.raises(ValueError):
+            mw.mrc_fixed_encode_cuda(key, sels, pc, a, b, nis)
+    wide = torch.full((1, 1, 40000), 0.5, device=cuda)                   # S beyond the stage
+    with pytest.raises(ValueError, match="out of range"):
+        mw.mrc_fixed_encode_cuda(key, sels[:1], wide, wide, wide, 8)
 
 
 # ---------------------------------------------------------------------------
