@@ -35,24 +35,25 @@ Phases (each one fails the run with a non-zero exit; nothing is swallowed):
    plain version, the unfused route it replaced (prng's candidates through
    ``ops.mrc_logw``) and its instruction bound; the u-fed ``mrc_logw`` at
    the GR and CFL shapes with its device time beside ``torch.baddbmm``;
-4. drive the three main paths -- the quickstart's BiCompFL-GR at full width
+4. drive the three main paths on the host loop (``mode="host"``, as every
+   run of phases 4-6) -- the quickstart's BiCompFL-GR at full width
    (MLP 100->256->10, d = 28160, 10 clients, 64 candidates) under
    ``FixedAllocation(128)``, ``AdaptiveAllocation(n_is=64)`` and
    ``AdaptiveAvgAllocation(n_is=64)`` -- for a few rounds each on the card,
    with every kernel launch count set to 0 just before each path and read
    just after; then ``mrc_logw`` (timed) and ``mrc_fixed_encode`` at the
    block sizes Adaptive-Avg chose;
-   then the variant paths at the same width, 3 rounds each, through
-   ``fl.federator.run_bicompfl`` (``n_dl`` = 10, the paper's default):
+   then the variant paths at the same width, 3 rounds each, with
+   ``fl.federator.run_bicompfl``'s spec (``n_dl`` = 10, the paper's default):
    GR-Reconst (fixed), PR (fixed), PR (adaptive), PR-SplitDL (fixed), and
    PR at participation 0.5 (fixed, ``cohort_rng="jax"``, through
    ``FLEngine``), with launches, booked bits and cohorts asserted and the
    peak device memory logged; then conventional FL at
    ``examples/cfl_gradient_compression.py``'s full width (a dense MLP
    100->256->10, d = 28160, 10 clients), 3 rounds each:
-   BiCompFL-GR-CFL through ``fl.federator.run_bicompfl_cfl`` (one
+   BiCompFL-GR-CFL with ``fl.federator.run_bicompfl_cfl``'s spec (one
    ``mrc_fixed_encode`` launch a round, asserted, with the reference's bits
-   and bpp), and the seven baselines through ``fl.baselines.run_baseline``
+   and bpp), and the seven baselines with ``fl.baselines.run_baseline``'s specs
    (the reference's bits; CSER and LIEC flush after round 2; no kernel
    launch); every fixed-block path launches ``mrc_fixed_encode`` once per
    encode and ``mrc_logw`` never;
@@ -92,7 +93,24 @@ Phases (each one fails the run with a non-zero exit; nothing is swallowed):
 10. serving, bf16: ``launch.serve.Server(cfg, max_batch=4, max_seq=128)
    .generate`` on four seeded greedy requests (prompts of 16, 32, 48 and 64
    tokens, 16 new tokens each), twice, with no kernel launch (decode runs
-   neither kernel, as in the reference); tokens per second.
+   neither kernel, as in the reference); tokens per second;
+11. (run between phases 6 and 7) the fused path, ``FLEngine.run(mode=
+   "fused")`` -- the default of every entry point -- at full width on
+   every path of phase 4 (GR fixed, adaptive and adaptive-avg; the five
+   variant paths; BiCompFL-GR-CFL; the seven baselines, CSER's and LIEC's
+   flush inside the run): a fresh engine captures its round as CUDA graphs (counts set to 0
+   just before: each wrapper counts at the warm-up and the capture of each
+   graph that holds its kernel, never at a replay); static plans must equal
+   phase 4's host runs bit for bit (theta, theta_hat, bits, history),
+   adaptive plans must pick the CPU fused run's buckets and book its bits on
+   the same inputs; a second run of the signature must capture nothing and
+   replay one graph per round (plus the eval, and the flush), bit for bit
+   the first; a profiled run gives device time, kernels per round, the idle
+   share and the port's kernels' launches per replayed round, which must
+   equal the host loop's; the path's entry point (the quickstart's ``run``,
+   ``run_bicompfl``, ``run_bicompfl_cfl``, ``run_baseline``, ``run_spec``)
+   in its default mode must run the fused path to the same result; the fused and host
+   steady round times and the peak device memory are printed.
 
 The second-to-last line is a JSON object ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -103,6 +121,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -124,13 +143,14 @@ from repro_torch.core.blocks import AdaptiveAllocation, AdaptiveAvgAllocation  #
 from repro_torch.core.blocks import BlockPlan, FixedAllocation  # noqa: E402
 from repro_torch.core.quantizers import mean_abs, stochastic_sign  # noqa: E402
 from repro_torch.fl import channels  # noqa: E402
-from repro_torch.fl.baselines import BaselineConfig, run_baseline  # noqa: E402
 from repro_torch.fl.channels import TAG_TRAIN  # noqa: E402
+from repro_torch.fl.baselines import BaselineConfig, run_baseline  # noqa: E402
 from repro_torch.fl.data import Dataset  # noqa: E402
-from repro_torch.fl.engine import FLEngine, MeanDeltaAggregator, _kl_stats  # noqa: E402
-from repro_torch.fl.federator import (BiCompFLConfig, CFLConfig, run_bicompfl,  # noqa: E402
-                                      run_bicompfl_cfl)
-from repro_torch.fl.registry import ALL_BASELINES, bicompfl_spec, cfl_spec  # noqa: E402
+from repro_torch.fl.engine import FLEngine, MeanDeltaAggregator, _kl_stats, run_spec  # noqa: E402
+from repro_torch.fl.federator import BiCompFLConfig, CFLConfig, run_bicompfl  # noqa: E402
+from repro_torch.fl.federator import run_bicompfl_cfl  # noqa: E402
+from repro_torch.fl.registry import ALL_BASELINES, baseline_spec, bicompfl_spec  # noqa: E402
+from repro_torch.fl.registry import cfl_spec  # noqa: E402
 from repro_torch.kernels import bernoulli_kl, build, mrc_weights, ops  # noqa: E402
 from repro_torch.kernels import flash_attn, rwkv_chunk  # noqa: E402
 from repro_torch.kernels import segment_logw as seg_kernel  # noqa: E402
@@ -234,6 +254,12 @@ BASELINE_REF_BITS = {"fedavg": [18022400.0, 36044800.0, 54067200.0],
                      "cser": [9293120.0, 36608640.0, 45901760.0],
                      "liec": [563840.0, 19150080.0, 19713920.0],
                      "m3": [2224640.0, 4449280.0, 6673920.0]}
+# The paths driven on the fused path (phase 11): every path of phase 4, each
+# compared with its host run there (a label of ``runs``); the port's kernels
+# by device name.
+FUSED_PATHS = (*PATHS, *VARIANTS, "cfl", *(f"baseline {s}" for s in ALL_BASELINES))
+OWN_KERNELS = ("mrc_logw_kernel", "mrc_encode_kernel", "kl_rows", "kl_cols", "seg_pass",
+               "seg_select")
 # Sign error feedback, card vs CPU on the same inputs: the scale mean|v|
 # sums 28160 terms in two orders, so the compressed vectors and EF states
 # agree to a few ulp of the scale; a sign may differ only within
@@ -900,7 +926,8 @@ def run_path(name):
         spec.allocation.log = plans = []
     reset_counts()
     t0 = time.perf_counter()
-    out = FLEngine(task, spec).run(shards, rounds=ROUNDS, seed=cfg["seed"], eval_every=1)
+    out = FLEngine(task, spec).run(shards, rounds=ROUNDS, seed=cfg["seed"], eval_every=1,
+                                   mode="host")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
@@ -971,15 +998,11 @@ def run_variant(label, rounds=VARIANT_ROUNDS):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    if cohort_rng == "numpy":
-        out = run_bicompfl(task, shards, BiCompFLConfig(
-            variant=variant, allocation=alloc, n_is=c["n_is"], rounds=rounds, seed=c["seed"],
-            eval_every=1, participation=part))
-    else:
-        spec = bicompfl_spec(variant, allocation=alloc, n_is=c["n_is"], n_dl=N_DL,
-                             participation=part)
-        out = FLEngine(task, spec).run(shards, rounds=rounds, seed=c["seed"], eval_every=1,
-                                       cohort_rng=cohort_rng)
+    # run_bicompfl's spec (n_dl = n * n_ul = N_DL), on the host loop.
+    spec = bicompfl_spec(variant, allocation=alloc, n_is=c["n_is"], n_dl=N_DL,
+                         participation=part)
+    out = FLEngine(task, spec).run(shards, rounds=rounds, seed=c["seed"], eval_every=1,
+                                   cohort_rng=cohort_rng, mode="host")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
@@ -1054,7 +1077,9 @@ def run_cfl(rounds=CFL_ROUNDS):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    out = run_bicompfl_cfl(task, theta0, shards, CFLConfig(rounds=rounds, seed=0))
+    # run_bicompfl_cfl's spec (CFLConfig's defaults), on the host loop.
+    out = FLEngine(task, cfl_spec()).run(shards, theta0, rounds=rounds, seed=0, eval_every=1,
+                                         mode="host")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
@@ -1098,8 +1123,10 @@ def phase_baselines(rounds=CFL_ROUNDS):
     for scheme in ALL_BASELINES:
         reset_counts()
         t0 = time.perf_counter()
-        out = run_baseline(task, theta0, shards, BaselineConfig(
-            scheme=scheme, rounds=rounds, seed=0, reset_period=BASELINE_PERIOD))
+        # run_baseline's spec, on the host loop.
+        spec = baseline_spec(scheme, n=10, d=28160, reset_period=BASELINE_PERIOD)
+        out = FLEngine(task, spec).run(shards, theta0, rounds=rounds, seed=0, eval_every=1,
+                                       mode="host")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_counts()
@@ -1129,9 +1156,9 @@ def phase_codec_vs_cpu(payload, priors, kt):
     routes (plain versions) on the same inputs."""
     cq, cp, ckt = payload.cpu(), priors.cpu(), kt.cpu()
     n, d = payload.shape
-    cpu = _kl_stats(cq, cp, needs_profile=True)                  # profile (d,)
-    card = _kl_stats(payload, priors, needs_profile=True)
-    card_mean = _kl_stats(payload, priors, needs_profile=False)  # mean KL, 0-d
+    cpu = _kl_stats(cq, cp, needs_profile=True)["profile"]                # (d,)
+    card = _kl_stats(payload, priors, needs_profile=True)["profile"]
+    card_mean = _kl_stats(payload, priors, needs_profile=False)["total"] / d  # mean KL, 0-d
     sc = kl_scale(cq, clip01(cp))
     err = assert_close_sums("KL profile card vs cpu", card.cpu(), cpu, sc.sum(0) / n)
     err_t = assert_close_sums("KL total card vs cpu", card_mean.cpu() * d, cpu.sum(),
@@ -1253,7 +1280,7 @@ def phase_cfl_vs_cpu():
         spec = cfl_spec()
         spec.uplink = RecordingCFLUplink(n_is=spec.uplink.n_is)
         spec.uplink.log = []
-        out = FLEngine(tk, spec).run(sh, th, rounds=1, seed=0)
+        out = FLEngine(tk, spec).run(sh, th, rounds=1, seed=0, mode="host")
         runs[dev] = (spec.uplink.log[0], out)
     (gi, gk, gp), gout = runs["cuda"]
     (ci, ck, cp), cout = runs["cpu"]
@@ -1323,14 +1350,14 @@ def phase_profile(name, rounds: int, unfused: bool = False):
     under ``unfused_fixed_route``), for the before/after.  A name of
     ``VARIANTS`` profiles that variant path (n_dl = 10); the peak device
     memory is that of the unprofiled run."""
-    run_kw = {}
+    run_kw = {"mode": "host"}
     if name in VARIANTS:
         variant, kind, part, cohort_rng = VARIANTS[name]
         task, _, shards = quickstart.build("cuda")
         alloc = quickstart.make_allocation(dict(quickstart.CONFIG, allocation=kind))
         spec = bicompfl_spec(variant, allocation=alloc, n_is=quickstart.CONFIG["n_is"],
                              n_dl=N_DL, participation=part)
-        run_kw = {"cohort_rng": cohort_rng}
+        run_kw["cohort_rng"] = cohort_rng
     else:
         task, spec, shards = quickstart.build("cuda", dict(quickstart.CONFIG, allocation=name))
     if not unfused:
@@ -1348,8 +1375,8 @@ def profile_cfl(rounds: int, unfused: bool = False):
     task, theta0, shards = cfl_gradient_compression.build("cuda")
     with unfused_fixed_route() if unfused else contextlib.nullcontext():
         return profile_engine("BiCompFL-GR-CFL" + (" (unfused route)" if unfused else ""),
-                              FLEngine(task, cfl_spec()), shards, rounds, {"theta0": theta0},
-                              steady_rounds=CFL_ROUNDS)
+                              FLEngine(task, cfl_spec()), shards, rounds,
+                              {"theta0": theta0, "mode": "host"}, steady_rounds=CFL_ROUNDS)
 
 
 @contextlib.contextmanager
@@ -1389,15 +1416,209 @@ def profile_engine(name, engine, shards, rounds: int, run_kw, steady_rounds=ROUN
         f"steady round {steady_ms:.3f} ms unprofiled -> device idle share "
         f"{1 - busy_ms / steady_ms:.4f}; peak device memory {peak / 2**20:.1f} MiB")
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
-    own = ("mrc_logw_kernel", "mrc_encode_kernel", "kl_rows", "kl_cols", "seg_pass",
-           "seg_select")
     for i, e in enumerate(ranked):
-        if i < 10 or any(k in e.key for k in own):
+        if i < 10 or any(k in e.key for k in OWN_KERNELS):
             log(f"  {e.self_device_time_total / rounds / 1e3:8.3f} ms/round  "
                 f"x{e.count // rounds:<5d} {e.key[:100]}")
     return {"device_busy_ms": busy_ms, "kernels_per_round": per_round,
             "steady_round_ms": steady_ms, "idle_share": 1 - busy_ms / steady_ms,
             "peak_memory_mib": peak / 2**20}
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the fused path (a round as CUDA graphs, replayed).
+# ---------------------------------------------------------------------------
+
+
+def fused_kind(label):
+    """The allocation of a FUSED_PATHS label: fixed, adaptive or adaptive-avg."""
+    if label in PATHS:
+        return label
+    return VARIANTS[label][1] if label in VARIANTS else "fixed"
+
+
+def fused_spec(label):
+    """A fresh spec of one fused path, as phase 4 builds it."""
+    c = quickstart.CONFIG
+    if label in PATHS:
+        return bicompfl_spec("GR", allocation=quickstart.make_allocation(
+            dict(c, allocation=label)), n_is=c["n_is"])
+    if label in VARIANTS:
+        variant, kind, part, _ = VARIANTS[label]
+        return bicompfl_spec(variant, allocation=quickstart.make_allocation(
+            dict(c, allocation=kind)), n_is=c["n_is"], n_dl=N_DL, participation=part)
+    if label == "cfl":
+        return cfl_spec()
+    return baseline_spec(label.split()[1], n=10, d=28160, reset_period=BASELINE_PERIOD)
+
+
+def fused_setup(label):
+    """(task, spec, shards, run keywords, rounds) of one fused path on the
+    card, as the host loop's phases build it (``label`` a key of FUSED_PATHS)."""
+    c = quickstart.CONFIG
+    if label in PATHS or label in VARIANTS:
+        task, _, shards = quickstart.build("cuda")
+        run_kw = {"seed": c["seed"], "eval_every": 1}
+        if label in VARIANTS:
+            return task, fused_spec(label), shards, dict(
+                run_kw, cohort_rng=VARIANTS[label][3]), VARIANT_ROUNDS
+        return task, fused_spec(label), shards, run_kw, ROUNDS
+    task, theta0, shards = cfl_gradient_compression.build("cuda")
+    return task, fused_spec(label), shards, {"theta0": theta0, "seed": 0, "eval_every": 1}, \
+        CFL_ROUNDS
+
+
+def entry_point_run(label, task, shards, run_kw, rounds):
+    """The path through the entry point a user calls, in its default mode:
+    the quickstart's ``run``, ``run_bicompfl``, ``run_bicompfl_cfl``,
+    ``run_baseline``, or ``run_spec`` (the one that takes ``cohort_rng``)."""
+    if label in PATHS:
+        return quickstart.run("cuda", rounds=rounds, eval_every=1,
+                              cfg={"allocation": label})
+    if label == "cfl":
+        return run_bicompfl_cfl(task, run_kw["theta0"], shards,
+                                CFLConfig(rounds=rounds, seed=run_kw["seed"]))
+    if label.startswith("baseline "):
+        return run_baseline(task, run_kw["theta0"], shards, BaselineConfig(
+            scheme=label.split()[1], rounds=rounds, seed=run_kw["seed"],
+            reset_period=BASELINE_PERIOD))
+    variant, kind, part, cohort_rng = VARIANTS[label]
+    if cohort_rng == "jax":
+        return run_spec(task, fused_spec(label), shards, rounds=rounds, **run_kw)
+    c = quickstart.CONFIG
+    return run_bicompfl(task, shards, BiCompFLConfig(
+        variant=variant, allocation=quickstart.make_allocation(dict(c, allocation=kind)),
+        n_is=c["n_is"], n_dl=N_DL, rounds=rounds, seed=run_kw["seed"], eval_every=1,
+        participation=part))
+
+
+def own_launches(events, rounds):
+    """Device launches per round of the port's own kernels, by kernel name."""
+    return {e.key: e.count / rounds for e in events if any(k in e.key for k in OWN_KERNELS)}
+
+
+def same_run(host, fused):
+    """Bit for bit: theta, theta_hat, bits and history."""
+    return (torch.equal(host["theta"], fused["theta"])
+            and torch.equal(host["theta_hat"], fused["theta_hat"])
+            and host["meter"] == fused["meter"] and host["history"] == fused["history"])
+
+
+def cpu_copy(task, shards):
+    """The card's mask task and shards carried to the CPU value for value."""
+    ctask = convert.mask_task(task.w0_flat.cpu(), task.x_test.cpu(), task.y_test.cpu(),
+                              dims=task.net.dims, device="cpu",
+                              local_epochs=task.local_epochs, lr=task.lr,
+                              batch_size=task.batch_size)
+    return ctask, Dataset(shards.x.cpu(), shards.y.cpu())
+
+
+def phase_fused(label, host_out, host_launches):
+    """One path on the fused path at full width: a fresh engine's first run
+    (captures; launch counts set to 0 just before and read just after,
+    peak device memory from a reset just before), checked against the card's
+    host run of the same path (static plans: bit for bit) or the CPU's fused
+    run on the same inputs (adaptive plans: the same buckets and bits); a
+    second, unprofiled run of the same signature (captures nothing, one
+    replay per graph a round; its wall time over the rounds is the steady
+    round); a profiled run (device time, kernels per round, the port's
+    kernels' launches per replayed round against the host loop's)."""
+    task, spec, shards, run_kw, rounds = fused_setup(label)
+    kind = fused_kind(label)
+    adaptive = kind != "fixed"
+    engine = FLEngine(task, spec)
+    gc.collect()                  # earlier paths' graphs and pools go first
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()    # what the run finds allocated
+    reset_counts()
+    t0 = time.perf_counter()
+    out = engine.run(shards, rounds=rounds, mode="fused", **run_kw)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    captured = engine.fused_capture_count
+    n_eval = len(out["history"])
+    flushes = rounds // spec.sync_period if spec.sync_period else 0
+    graphs = (2 + len(set(out["buckets"]))) if adaptive else 2 + bool(flushes)
+    if out["mode"] != "fused" or captured != graphs:
+        raise AssertionError(f"fused {label}: mode {out['mode']}, {captured} graphs "
+                             f"captured, expected {graphs}")
+    # The wrappers count where Python runs: the warm-up and the capture of
+    # each graph that holds the kernel, never a replay.
+    per_round = {k: v // rounds for k, v in host_launches.items()}
+    expect = {k: 2 * v for k, v in per_round.items()}
+    if adaptive:
+        enc = "segment_mrc_encode" if kind == "adaptive" else "mrc_fixed_encode"
+        expect[enc] = 2 * len(set(out["buckets"])) * per_round[enc]
+    if launches != expect:
+        raise AssertionError(f"fused {label}: launches {launches} at capture, expected {expect}")
+    if adaptive:
+        ctask, cshards = cpu_copy(task, shards)
+        cpu = FLEngine(ctask, fused_spec(label)).run(cshards, rounds=rounds, mode="fused",
+                                                     **run_kw)
+        bits = [h["cum_bits"] for h in out["history"]]
+        if out["buckets"] != cpu["buckets"] or bits != [h["cum_bits"] for h in cpu["history"]] \
+                or out["meter"] != cpu["meter"]:
+            raise AssertionError(f"fused {label}: buckets {out['buckets']}, bits {bits} on the "
+                                 f"card; {cpu['buckets']}, "
+                                 f"{[h['cum_bits'] for h in cpu['history']]} on the CPU")
+        agree = (f"buckets {out['buckets']} and bits {bits} equal to the CPU fused run's "
+                 f"(the host loop's exact plans booked {host_out['meter']['total_bits']:.0f})")
+    else:
+        if not same_run(host_out, out):
+            dth = float((host_out["theta"] - out["theta"]).abs().max())
+            raise AssertionError(f"fused {label} differs from the host loop: theta max|diff| "
+                                 f"{dth:.3e}; meter {out['meter']} vs {host_out['meter']}")
+        agree = "theta, theta_hat, bits and history bit-identical to the host loop's"
+    if not all(math.isfinite(h["acc"]) for h in out["history"]) \
+            or not bool(torch.isfinite(out["theta"]).all()):
+        raise AssertionError(f"fused {label}: non-finite accuracy or theta")
+    replays = engine.fused_replay_count
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = engine.run(shards, rounds=rounds, mode="fused", **run_kw)
+    torch.cuda.synchronize()
+    steady_ms = 1e3 * (time.perf_counter() - t0) / rounds
+    replayed = engine.fused_replay_count - replays
+    want = (2 * rounds if adaptive else rounds + flushes) + n_eval
+    if engine.fused_capture_count != captured or replayed != want:
+        raise AssertionError(f"fused {label}: a second run captured "
+                             f"{engine.fused_capture_count - captured} graphs and replayed "
+                             f"{replayed}, expected 0 and {want}")
+    if not same_run(out, again):
+        raise AssertionError(f"fused {label}: a replayed run differs from the first")
+    busy_ms, events = device_profile(
+        lambda: engine.run(shards, rounds=rounds, mode="fused", **run_kw), rounds)
+    kernels = sum(e.count for e in events) / rounds
+    fused_own = own_launches(events, rounds)
+    _, host_events = device_profile(
+        lambda: FLEngine(task, spec).run(shards, rounds=1, mode="host", **run_kw), 1)
+    host_own = own_launches(host_events, 1)
+    if fused_own != host_own or (any(per_round.values()) and not fused_own):
+        raise AssertionError(f"fused {label}: the port's kernels launch {fused_own} per "
+                             f"replayed round, the host loop {host_own}")
+    entry = entry_point_run(label, task, shards, run_kw, rounds)
+    if entry["mode"] != "fused" or not same_run(out, entry):
+        raise AssertionError(f"fused {label}: the entry point ran {entry['mode']}, or not "
+                             "the fused run's result")
+    host_ms = 1e3 * sum(sum(v[1:]) for v in host_out["phase_seconds"].values()) / (rounds - 1)
+    idle = 1 - busy_ms / steady_ms if busy_ms else float("nan")
+    log(f"fused {label}: {rounds} rounds, first run {first_s:.3f} s ({captured} graphs "
+        f"captured), {agree}; its entry point in its default mode ran the fused path to the "
+        f"same result; steady round {steady_ms:.3f} ms fused (wall of a replayed run "
+        f"/ rounds) vs {host_ms:.3f} ms host loop (rounds 2-{rounds}); device busy "
+        f"{busy_ms:.3f} ms per round in {kernels:.1f} kernels, idle share {idle:.4f}; peak "
+        f"device memory {peak / 2**20:.1f} MiB, {(peak - held) / 2**20:.1f} MiB above the "
+        f"{held / 2**20:.1f} MiB held before the run; the port's kernels per replayed round "
+        f"{fused_own} (host loop {host_own}); launches at capture {launches}")
+    return {"graphs": captured, "steady_round_ms": steady_ms, "host_round_ms": host_ms,
+            "device_busy_ms": busy_ms, "kernels_per_round": kernels, "idle_share": idle,
+            "peak_memory_mib": peak / 2**20, "held_before_mib": held / 2**20,
+            "launches_per_round": fused_own,
+            "capture_launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1759,6 +1980,12 @@ def main() -> int:
                 "BiCompFL-GR-CFL": profile_cfl(1),
                 "BiCompFL-GR-CFL (unfused route)": profile_cfl(1, unfused=True)}
     t6 = time.perf_counter() - t6
+
+    # Phase 11.
+    t11 = time.perf_counter()
+    fused = {label: phase_fused(label, runs[label][2], runs[label][0]) for label in FUSED_PATHS}
+    t11 = time.perf_counter() - t11
+    log(f"fused phase: {t11:.1f} s")
     log(f"variant phases' seconds: kernel checks {t3:.1f} (fixed-block encoder "
         f"{t_fixed:.1f}), paths {t_var:.1f} (peak device memory MiB "
         f"{ {k: round(v / 2**20, 1) for k, v in peaks.items()} }), card vs cpu {t5:.1f}, "
@@ -1832,10 +2059,31 @@ def main() -> int:
             ("rwkv_chunk", "rwkv_chunk", "src/repro/kernels/rwkv_chunk.py:90",
              model_rows["rwkv"], by_model("rwkv_time_mix"),
              {"shape": model_rows["rwkv"]["shape"]})]
+    # The fused paths: each kernel's device launches per replayed round (by
+    # its device names, from the profiler) and its wrapper's count at capture.
+    device_names = {"mrc_logw": ("mrc_logw_kernel",), "mrc_fixed_encode": ("mrc_encode_kernel",),
+                    "bernoulli_kl": ("kl_rows", "kl_cols"), "segment_mrc_encode": ("seg_pass",
+                                                                                    "seg_select")}
+    wrappers = {"mrc_logw": ("mrc_logw",), "mrc_fixed_encode": ("mrc_fixed_encode",),
+                "bernoulli_kl": ("bernoulli_kl", "bernoulli_kl_total", "bernoulli_kl_profile"),
+                "segment_mrc_encode": ("segment_mrc_encode",)}
+
+    def fused_by_path(name):
+        base = next((b for b in device_names if name.startswith(b)), None)
+        if base is None:
+            return {}
+        return {"fused_launches_per_round": {
+                    p: sum(v for k, v in f["launches_per_round"].items()
+                           if any(n in k for n in device_names[base]))
+                    for p, f in fused.items()},
+                "fused_capture_launches": {
+                    p: sum(f["capture_launches"][w] for w in wrappers[base])
+                    for p, f in fused.items()}}
+
     kernels = [{"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{src}.cu", "replaces": replaces,
                 "launches": sum(per_path.values()), "launches_by_path": per_path,
-                **{k: row[k] for k in keys}, **extra}
+                **{k: row[k] for k in keys}, **extra, **fused_by_path(name)}
                for name, src, replaces, row, per_path, extra in rows]
     for k in kernels:   # a bound is the least time the card could take
         measured = [t for t in (k["ms"], k.get("device_ms")) if t]
@@ -1843,6 +2091,7 @@ def main() -> int:
             raise AssertionError(f"{k['name']}: measured {min(measured):.4f} ms is below its "
                                  f"bound {k['bound_ms']:.4f} ms: the bound is not a bound")
     log(f"FL profiles: {json.dumps(profiles)}")
+    log(f"fused paths: {json.dumps(fused)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -101,7 +101,7 @@ def sample_mean(x: torch.Tensor) -> torch.Tensor:
     total = x[0]
     for row in x[1:]:
         total = total + row
-    return total * torch.tensor(1.0 / x.shape[0], dtype=x.dtype, device=x.device)
+    return total * torch.full((), 1.0 / x.shape[0], dtype=x.dtype, device=x.device)
 
 
 def encode_fixed(shared_key: torch.Tensor, select_key: torch.Tensor,
@@ -214,7 +214,18 @@ def _validate_seg_ids(seg_ids) -> np.ndarray:
 
 
 def _seg_tensor(seg_ids, device) -> torch.Tensor:
-    """Validated ids as an int32 tensor on ``device`` (what the kernel takes)."""
+    """The ids as an int32 tensor on ``device`` (what the kernel takes).
+
+    Host plans (numpy) are validated on the host.  An int32 tensor already
+    on ``device`` is the fused path's plan (``finalize_plan``), built by a
+    cumulative sum and so non-decreasing by construction; it passes
+    unchecked, as the reference passes traced ids, because a captured round
+    cannot copy it to the host.  Its segment 0 may be empty (ids starting
+    at 1) and its last segments too; the codec sums an empty segment to 0.
+    """
+    if isinstance(seg_ids, torch.Tensor) and seg_ids.dtype == torch.int32 \
+            and seg_ids.device == torch.device(device):
+        return seg_ids
     return torch.as_tensor(_validate_seg_ids(seg_ids).astype(np.int32), device=device)
 
 

@@ -30,8 +30,8 @@ def mean_abs(g: torch.Tensor) -> torch.Tensor:
     """``mean(|g|)`` over the last axis (kept), rounded as the reference's
     ``jnp.mean``: the sum times the float32 reciprocal of the length.  The
     sum runs in torch's order, so it agrees with XLA's to a few ulp."""
-    return torch.abs(g).sum(dim=-1, keepdim=True) * torch.tensor(
-        1.0 / g.shape[-1], dtype=g.dtype, device=g.device)
+    return torch.abs(g).sum(dim=-1, keepdim=True) * torch.full(
+        (), 1.0 / g.shape[-1], dtype=g.dtype, device=g.device)
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,8 @@ downlink, and bits are booked from what is transmitted.
                   downlink sends each client a disjoint dense 1/n slice.
 
 Each scheme is a factory in :mod:`repro_torch.fl.registry`, run by the
-shared :class:`~repro_torch.fl.engine.FLEngine` host loop.
+shared :class:`~repro_torch.fl.engine.FLEngine` in its default mode (the
+fused path).
 """
 from __future__ import annotations
 

@@ -29,8 +29,12 @@ Neolithic's repeated passes), ``TopKEFChannel`` and ``SliceDownlink``
 (M3).  Those are step functions only: the reference's object shells that
 keep the error-feedback memory in the channel (``transmit`` /
 ``distribute`` / ``flush`` / ``export_state`` on the EF channels), the
-wire codecs (``encode_up``, ``decode_up`` and friends, ``flush_wire``) and
-the fused path's ``pin`` come later.
+wire codecs (``encode_up``, ``decode_up`` and friends, ``flush_wire``) come
+later.  The reference's ``pin`` is not needed: the port's fused path
+replays the very kernels its host loop launches, so nothing is contracted
+across stage boundaries.  Every channel also runs inside a captured CUDA
+graph: no host copy, no host read, the cohort (``ctx.active``) and the plan
+of a fused round already on the device.
 
 The key-derivation tags are the reference's, so both packages draw the same
 candidates and selections in every round.
@@ -112,6 +116,8 @@ class RoundContext:
 
     @property
     def active_ids(self) -> torch.Tensor:
+        """The cohort as an int64 tensor on the key's device: the fused path
+        passes it there already (no copy), the host loop a numpy row."""
         return torch.as_tensor(self.active, dtype=torch.int64, device=self.key.device)
 
 
@@ -150,6 +156,9 @@ class StatelessUplink:
         out, bits, _ = self.step_up(ctx, EMPTY_STATE, payload, priors)
         return out, bits
 
+    def flush_step(self, state, n: int, d: int):
+        return 0.0, 0.0, state
+
 
 class StatelessDownlink:
     """Object shell + trivial state for downlinks without memory."""
@@ -160,6 +169,9 @@ class StatelessDownlink:
     def distribute(self, ctx, update, theta, theta_hat):
         res, _ = self.step_down(ctx, EMPTY_STATE, update, theta, theta_hat)
         return res
+
+    def flush_step(self, state, n: int, d: int):
+        return 0.0, 0.0, state
 
 
 # ---------------------------------------------------------------------------
@@ -388,6 +400,9 @@ class MRCPrivateDownlink(StatelessDownlink):
         return DownlinkResult(update.theta, theta_hat, bits), state
 
 
+_OWNERSHIP: dict = {}
+
+
 @dataclass
 class SplitBlockDownlink(StatelessDownlink):
     """PR-SplitDL: each client receives MRC only for a disjoint 1/n of the
@@ -415,14 +430,25 @@ class SplitBlockDownlink(StatelessDownlink):
             own_pad[i, :len(own)] = own
         return own_pad, max_len
 
+    @staticmethod
+    def _ownership_on(n: int, n_blocks: int, device) -> torch.Tensor:
+        """The ownership table on ``device``, copied there once per (n,
+        n_blocks, device): a captured round reads it, never copies it."""
+        key = (n, n_blocks, torch.device(device))
+        own = _OWNERSHIP.get(key)
+        if own is None:
+            own = _OWNERSHIP[key] = torch.as_tensor(
+                SplitBlockDownlink._ownership(n, n_blocks)[0], device=device)
+        return own
+
     def _transmit(self, ctx, update, theta_hat):
         """Returns (indices (n, n_samples, max_len), new theta_hat (n, d), bits)."""
         kt, plan, d = ctx.key, ctx.plan, ctx.d
         if plan.adaptive:
             raise NotImplementedError("SplitDL is defined on fixed blocks")
         n, size, n_blocks = ctx.n_clients, plan.size, plan.n_blocks
-        own_pad, max_len = self._ownership(n, n_blocks)
-        own = torch.as_tensor(own_pad, device=theta_hat.device)
+        max_len = -(-n_blocks // n)
+        own = self._ownership_on(n, n_blocks, theta_hat.device)
         tb = to_blocks(update.theta, size)                         # (B, S)
         dummy = tb.new_full((1, size), 0.5)
         tb_ext = torch.cat([tb, dummy])                            # (B + 1, S)

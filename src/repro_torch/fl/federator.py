@@ -19,7 +19,8 @@ Variants (``BiCompFLConfig.variant``):
 conventional FL (stochastic sign + MRC against the Ber(1/2) prior).
 
 Both build the scheme from the registry and run the shared
-:class:`~repro_torch.fl.engine.FLEngine` host loop on the task's device.
+:class:`~repro_torch.fl.engine.FLEngine` on the task's device in its
+default mode, "auto": the fused path, as the reference's entry points run.
 The reference's ``chunk`` (a memory knob of its ``vmap``) and ``logw_fn``
 are left out: the port encodes a batch whole, through the fused encoder
 ``ops.mrc_fixed_encode``.  So is ``CFLConfig.temperature``, which the

@@ -102,4 +102,4 @@ def accuracy(net: MLP, weights, x: torch.Tensor, y: torch.Tensor,
     n = x.shape[0]
     correct = sum((torch.argmax(net(x[i:i + batch], weights), -1) == y[i:i + batch])
                   .to(torch.float32).sum() for i in range(0, n, batch))
-    return correct * torch.tensor(1.0 / n, dtype=torch.float32, device=x.device)
+    return correct * torch.full((), 1.0 / n, dtype=torch.float32, device=x.device)

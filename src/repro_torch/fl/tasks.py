@@ -82,10 +82,16 @@ class MaskTask:
             s, st = opt.update(g, s, st)
         return clip01(torch.sigmoid(s))
 
+    def accuracy(self, theta: torch.Tensor) -> torch.Tensor:
+        """Accuracy with the expected mask (w * theta) -- low-variance eval --
+        as a float32 0-d tensor on the task's device (the fused path's eval
+        graph writes it into a device vector; nothing is read back)."""
+        return accuracy(self.net, self.unravel(self.w0_flat * theta), self.x_test,
+                        self.y_test)
+
     def evaluate(self, theta: torch.Tensor) -> float:
         """Accuracy with the expected mask (w * theta) -- low-variance eval."""
-        weights = self.unravel(self.w0_flat * theta)
-        return float(accuracy(self.net, weights, self.x_test, self.y_test))
+        return float(self.accuracy(theta))
 
 
 def make_mask_task(net: MLP, key: torch.Tensor, x_test, y_test, **kw) -> MaskTask:
@@ -136,8 +142,12 @@ class CFLTask:
             w, st = opt.update(g, w, st)
         return theta - w
 
+    def accuracy(self, theta: torch.Tensor) -> torch.Tensor:
+        """Test accuracy as a float32 0-d tensor (the fused path's form)."""
+        return accuracy(self.net, self.unravel(theta), self.x_test, self.y_test)
+
     def evaluate(self, theta: torch.Tensor) -> float:
-        return float(accuracy(self.net, self.unravel(theta), self.x_test, self.y_test))
+        return float(self.accuracy(theta))
 
 
 def make_cfl_task(net: MLP, key: torch.Tensor, x_test, y_test,

@@ -47,9 +47,9 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Op
         mu = b1 * state.mu + (1 - b1) * grads
         nu = b2 * state.nu + (1 - b2) * grads * grads
         # float32 powers, as the reference's ``b ** step.astype(float32)``
-        t = torch.tensor(float(step), dtype=torch.float32, device=params.device)
-        bc1 = 1 - torch.tensor(b1, dtype=torch.float32, device=params.device) ** t
-        bc2 = 1 - torch.tensor(b2, dtype=torch.float32, device=params.device) ** t
+        t = torch.full((), float(step), dtype=torch.float32, device=params.device)
+        bc1 = 1 - torch.full((), b1, dtype=torch.float32, device=params.device) ** t
+        bc2 = 1 - torch.full((), b2, dtype=torch.float32, device=params.device) ** t
         # torch's float32 sqrt on the CPU is not correctly rounded (one ulp
         # off on some inputs); XLA's is.  The float64 sqrt rounded once to
         # float32 is the correctly rounded float32 sqrt on every device.

@@ -25,6 +25,7 @@ bits after every add, so the same code runs on CPU and CUDA.
 from __future__ import annotations
 
 import math
+import numbers
 from typing import Sequence, Union
 
 import torch
@@ -86,7 +87,11 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     ``key`` is ``(K..., 2)``; ``data`` is an int or an integer tensor whose
     shape broadcasts against ``K...``.  Returns ``(broadcast..., 2)``.
     """
-    d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & MASK32
+    if isinstance(data, numbers.Integral):
+        # A fill, not a host-to-device copy: safe inside a captured graph.
+        d = torch.full((), int(data) & MASK32, dtype=torch.int64, device=key.device)
+    else:
+        d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & MASK32
     y0, y1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
     return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
 
@@ -146,8 +151,8 @@ def uniform(key: torch.Tensor, shape: Shape = (), minval: float = 0.0,
     floats = _bits_to_unit_float(random_bits(key, shape))
     if minval == 0.0 and maxval == 1.0:
         return floats  # floats * 1 + 0, clamped at 0: the identity
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
@@ -231,7 +236,7 @@ def normal(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
     """
     lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
     u = uniform(key, shape, lo, 1.0)
-    sqrt2 = torch.tensor(math.sqrt(2.0), dtype=torch.float32, device=key.device)
+    sqrt2 = torch.full((), math.sqrt(2.0), dtype=torch.float32, device=key.device)
     return sqrt2 * torch.erfinv(u)
 
 

@@ -13,7 +13,8 @@ segments of equal KL mass (``adaptive``), the paper's three allocations
 (``benchmarks/run.py`` ``table_main``).  On the card the MRC importance
 weights go through the hand-written CUDA kernels ``mrc_logw`` (equal
 blocks) and ``segment_logw`` (segments), and the adaptive plans read the
-round's KL through ``bernoulli_kl``.
+round's KL through ``bernoulli_kl``; the engine's default (fused) path
+captures a round as CUDA graphs once and replays them every round.
 """
 from __future__ import annotations
 

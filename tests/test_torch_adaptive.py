@@ -106,19 +106,21 @@ def test_bernoulli_kl_ops_cpu_take_plain_versions_and_count_nothing():
 def test_kl_stats_match_reference_host_profile(seed, n, d):
     """``engine._kl_stats`` on the CPU against the reference host loop's
     profile and its own ``_kl_stats`` (the jnp route on the CPU): the CPU
-    route returns the profile whatever ``needs_profile`` says."""
+    route returns the profile and its sum whatever ``needs_profile`` says."""
     payload, priors = _qp(np.random.default_rng(seed), (n, d), spread=0.2)
     ref_profile = np.asarray(jnp.mean(jax.vmap(j_bern_kl)(
         jnp.asarray(payload), j_clip01(jnp.asarray(priors))), axis=0))
     jstats = j_kl_stats(jnp.asarray(payload), jnp.asarray(priors), needs_profile=True)
     for needs_profile in (True, False):
-        got = t_kl_stats(torch.tensor(payload), torch.tensor(priors),
-                         needs_profile=needs_profile)
+        stats = t_kl_stats(torch.tensor(payload), torch.tensor(priors),
+                           needs_profile=needs_profile)
+        got = stats["profile"]
         rel = np.abs(got.numpy() - ref_profile) / np.abs(ref_profile)
         print(f"_kl_stats profile max rel diff: {rel.max():.2e}")
         np.testing.assert_allclose(got.numpy(), ref_profile,
                                    rtol=PROFILE_RTOL, atol=PROFILE_ATOL)
-        np.testing.assert_allclose(float(got.sum()), float(jstats["total"]),
+        assert float(stats["total"]) == float(got.sum())
+        np.testing.assert_allclose(float(stats["total"]), float(jstats["total"]),
                                    rtol=PROFILE_RTOL)
 
 
@@ -448,7 +450,7 @@ def test_engine_adaptive_run_matches_reference(ref, name):
                                  mode="host")
     tout = TEngine(ttask, tspec).run(convert.dataset(ref["shards"].x, ref["shards"].y,
                                                      "cpu"),
-                                     rounds=ROUNDS, seed=0, eval_every=1)
+                                     rounds=ROUNDS, seed=0, eval_every=1, mode="host")
     assert len(talloc.log) == len(jalloc.log) == ROUNDS
     for r, (got, want) in enumerate(zip(talloc.log, jalloc.log)):
         print(f"round {r}: plan size {got[0]}, n_blocks {got[1]}, overhead {got[3]}")

@@ -782,3 +782,137 @@ def test_model_kernel_wrappers_refuse_bad_input(cuda):
         rc.rwkv_time_mix_cuda(r.requires_grad_(), kk, vv, logw, u)
     with pytest.raises(ValueError, match="cpu or cuda"):
         ops.rwkv_time_mix(*(t.to("meta") for t in (r, kk, vv, logw, u)))
+
+
+# ---------------------------------------------------------------------------
+# The fused path: bucketed plans and captured rounds.
+# ---------------------------------------------------------------------------
+
+from repro_torch import quickstart  # noqa: E402
+from repro_torch.core import blocks  # noqa: E402
+from repro_torch.fl.data import Dataset  # noqa: E402
+from repro_torch.fl.engine import FLEngine  # noqa: E402
+from repro_torch.fl.registry import bicompfl_spec  # noqa: E402
+
+
+def _profile(device, d, seed, head=False):
+    """A rough KL profile; ``head``: a spike at parameter 0, so that the
+    first bin edges collapse there (an empty segment 0, ids from 1)."""
+    gen = torch.Generator().manual_seed(seed)
+    klp = 0.02 * torch.rand(d, generator=gen) ** 4
+    klp[torch.randint(0, d, (3,), generator=gen)] += 2.0
+    if head:
+        klp[0] = 40.0
+    return klp.to(device)
+
+
+@pytest.mark.parametrize("keys", ["shared", "client"])
+@pytest.mark.parametrize("clients,nis,d,nb", [(10, 64, 28160, 256), (3, 33, 1001, 40)])
+def test_keyed_encode_takes_a_bucketed_plan(cuda, clients, nis, d, nb, keys):
+    """``finalize_plan``'s device ids, with an empty segment 0 and empty
+    trailing segments up to the template's capacity: the keyed encoder
+    against its plain version (empty segments weigh exactly 0), under a
+    shared key (GR) and under (C, 2) client keys (PR's private candidates)."""
+    plan = blocks.AdaptiveAllocation(n_is=nis).finalize_plan(
+        blocks.BlockPlan(size=None, n_blocks=nb, seg_ids=None, overhead_bits=0.0),
+        {"profile": _profile(cuda, d, nb, head=True)}, d)
+    seg, billable = plan.seg_ids, int(plan.billable_blocks)
+    assert int(seg[0]) == 1 and billable < nb and seg.dtype == torch.int32
+    key, sels, pc, a, b, _, _ = _encode_inputs(cuda, clients, nis, d, "random", d + 9)
+    if keys == "client":
+        key = _client_keys(key, clients)
+    idx, sample, logw = sl.segment_mrc_encode_cuda(key, sels, pc, a, b, seg, nis, nb)
+    w_idx, w_sample, w_logw = sl.segment_mrc_encode_ref(key, sels, pc, a, b, seg.long(), nis,
+                                                        nb)
+    empty = torch.ones(nb, dtype=torch.bool, device=cuda)
+    empty[seg.long()] = False
+    assert bool(empty[0]) and bool((logw[:, :, empty] == 0).all())
+    mag = segment_logw_ref(torch.zeros(nis, d, device=cuda), torch.ones_like(pc), a.abs(),
+                           b.abs(), seg.long(), nb)
+    _assert_sums_close(logw, w_logw, mag)
+    gu = prng.uniform(sels, (nis, nb))
+    score = torch.sort(w_logw - torch.log(-torch.log(torch.clamp(gu, 1e-12, 1 - 1e-12))),
+                       dim=1).values
+    gap = score[:, -1] - score[:, -2]
+    diff = idx != w_idx
+    assert bool((gap[diff] < 1e-4).all())
+    keep = ~diff[:, seg.long()]
+    assert torch.equal(sample[keep], w_sample[keep])
+    assert torch.equal(sl.segment_select_cuda(key, idx, pc, seg), sample)
+
+
+def test_bucket_api_on_the_card_equals_the_cpu(cuda):
+    """The same float adds in the same order: on the same profile and total,
+    bucket index, segment ids, billable count and the cumulative sum equal
+    on the card and the CPU."""
+    for seed, head in ((1, False), (2, True), (3, False)):
+        klp = _profile("cpu", 28160, seed, head)
+        cum = blocks.scan_cumsum(klp)
+        assert torch.equal(blocks.scan_cumsum(klp.to(cuda)).cpu(), cum)
+        q = torch.linspace(-1.0, float(cum[-1]) + 1.0, 999)
+        assert torch.equal(blocks.searchsorted_left(cum.to(cuda), q.to(cuda)).cpu(),
+                           blocks.searchsorted_left(cum, q))
+        for alloc in (blocks.AdaptiveAllocation(n_is=64),
+                      blocks.AdaptiveAllocation(n_is=64, target_ratio=0.02),
+                      blocks.AdaptiveAvgAllocation(n_is=64)):
+            stats = {"profile": klp, "total": klp.sum()}
+            cstats = {k: v.to(cuda) for k, v in stats.items()}
+            b = int(alloc.select_bucket(stats, 28160))
+            assert int(alloc.select_bucket(cstats, 28160)) == b
+            for tmpl in alloc.bucket_plans(28160)[::2]:
+                want = alloc.finalize_plan(tmpl, stats, 28160)
+                got = alloc.finalize_plan(tmpl, cstats, 28160)
+                if want.seg_ids is not None:
+                    assert torch.equal(got.seg_ids.cpu(), want.seg_ids)
+                    assert int(got.billable_blocks) == int(want.billable_blocks)
+
+
+SMALL = dict(n_train=400, n_test=100, hw=6, widths=(32,), local_epochs=1)
+
+
+def _cpu_twin(task, shards):
+    from repro_torch import convert
+    return (convert.mask_task(task.w0_flat.cpu(), task.x_test.cpu(), task.y_test.cpu(),
+                              dims=task.net.dims, device="cpu",
+                              local_epochs=task.local_epochs, lr=task.lr,
+                              batch_size=task.batch_size),
+            Dataset(shards.x.cpu(), shards.y.cpu()))
+
+
+@pytest.mark.parametrize("allocation,participation", [("fixed", 1.0), ("fixed", 0.5),
+                                                      ("adaptive", 1.0),
+                                                      ("adaptive-avg", 1.0)])
+def test_fused_run_on_the_card(cuda, allocation, participation):
+    """A small GR (or, at participation 0.5, PR with jax cohorts) run as
+    CUDA graphs: static plans equal the card's host loop bit for bit;
+    adaptive plans pick the CPU fused run's buckets and book its bits; a
+    second run captures nothing and replays every graph once a round."""
+    cfg = dict(quickstart.CONFIG, **SMALL, allocation=allocation)
+    task, spec, shards = quickstart.build(cuda, cfg)
+    kw = {}
+    if participation < 1:
+        spec = bicompfl_spec("PR", allocation=quickstart.make_allocation(cfg),
+                             n_is=cfg["n_is"], n_dl=3, participation=participation)
+        kw["cohort_rng"] = "jax"
+    eng = FLEngine(task, spec)
+    before = {k: getattr(ops, k).launches for k in ("mrc_fixed_encode", "segment_mrc_encode")}
+    fused = eng.run(shards, rounds=3, mode="fused", **kw)
+    assert fused["mode"] == "fused"
+    assert any(getattr(ops, k).launches > v for k, v in before.items())
+    captured, replays = eng.fused_capture_count, eng.fused_replay_count
+    again = eng.run(shards, rounds=3, mode="fused", **kw)
+    graphs_a_round = 3 if allocation.startswith("adaptive") else 2
+    assert eng.fused_capture_count == captured
+    assert eng.fused_replay_count - replays == 3 * graphs_a_round
+    assert torch.equal(again["theta"], fused["theta"]) and again["meter"] == fused["meter"]
+    if allocation == "fixed":
+        host = FLEngine(task, spec).run(shards, rounds=3, mode="host", **kw)
+        assert host["history"] == fused["history"] and host["meter"] == fused["meter"]
+        assert torch.equal(host["theta"], fused["theta"])
+        assert torch.equal(host["theta_hat"], fused["theta_hat"])
+    else:
+        ctask, cshards = _cpu_twin(task, shards)
+        cspec = bicompfl_spec("GR", allocation=quickstart.make_allocation(cfg),
+                              n_is=cfg["n_is"])
+        cpu = FLEngine(ctask, cspec).run(cshards, rounds=3, mode="fused")
+        assert fused["buckets"] == cpu["buckets"] and fused["meter"] == cpu["meter"]

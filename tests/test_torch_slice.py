@@ -249,10 +249,13 @@ def test_registry_and_engine_refuse_what_is_not_ported(ref):
         t_spec("GR", allocation=object())
     eng = TEngine(_port_task(ref), t_spec("GR", allocation=TFixed(BLOCK), n_is=N_IS))
     shards = _port_shards(ref)
-    for kw in ({"mode": "fused"}, {"wire": "audit"}, {"faults": object()},
+    for kw in ({"wire": "audit"}, {"faults": object()},
                {"checkpoint_dir": "ckpt"}, {"resume_from": "ckpt"}):
         with pytest.raises(NotImplementedError):
             eng.run(shards, rounds=1, **kw)
+    assert eng.run(shards, rounds=1, mode="fused")["mode"] == "fused"   # ported since
+    with pytest.raises(ValueError):
+        eng.run(shards, rounds=1, mode="scan")
     out = eng.run(shards, rounds=1, cohort_rng="jax")      # ported since
     np.testing.assert_array_equal(out["active_schedule"], [np.arange(N_CLIENTS)])
     with pytest.raises(ValueError):

@@ -463,7 +463,7 @@ def _run_both(ref, variant, alloc, participation=1.0, cohort_rng="numpy", rounds
     jout = JEngine(ref["task"], jspec).run(ref["shards"], rounds=rounds, seed=0,
                                            eval_every=1, mode="host", cohort_rng=cohort_rng)
     tout = TEngine(ref["ttask"], tspec).run(ref["tshards"], rounds=rounds, seed=0,
-                                            eval_every=1, cohort_rng=cohort_rng)
+                                            eval_every=1, mode="host", cohort_rng=cohort_rng)
     print(f"{variant} {alloc} participation {participation} ({cohort_rng}): plans "
           f"{[(p[0], p[1]) for p in tspec.allocation.log]}, cohorts "
           f"{tout['active_schedule'].tolist()}, bits {tout['meter']['total_bits']}")
