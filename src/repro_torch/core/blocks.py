@@ -23,8 +23,12 @@ Each is the reference's expression for expression, in float32, so that the
 port picks the reference's bucket and segment ids: ``finalize_plan``'s
 cumulative sum adds in the order XLA's CPU scan adds (``scan_cumsum``) and
 its bin edges come from jax's binary search (``searchsorted_left``); both
-run the same float adds on the CPU and the card.  ``encode_plan`` /
-``decode_plan`` come with the wire codec.
+run the same float adds on the CPU and the card.
+
+``encode_plan(plan, w)`` / ``decode_plan(r, d)`` are the plan's wire codec
+(``repro_torch.wire``): the CTRL header that a wire-audited host round
+sends each client, exactly the booked ``overhead_bits`` long.  They take a
+host plan (numpy segment ids).
 """
 from __future__ import annotations
 
@@ -134,6 +138,14 @@ class FixedAllocation:
         """Return (block_size, n_blocks, seg_ids=None, overhead_bits)."""
         return self.block_size, self.blocks_for(d), None, 0.0
 
+    # -- wire codec: the plan is static config, zero bits cross the wire --
+    def encode_plan(self, plan: "BlockPlan", w) -> None:
+        pass
+
+    def decode_plan(self, r, d: int) -> "BlockPlan":
+        return BlockPlan(size=self.block_size, n_blocks=self.blocks_for(d),
+                         seg_ids=None, overhead_bits=0.0)
+
 
 @dataclass
 class AdaptiveAvgAllocation:
@@ -168,6 +180,17 @@ class AdaptiveAvgAllocation:
                                 math.log2(self.min_block), math.log2(self.max_block)))
         n_blocks = _pad_to(d, size) // size
         return size, n_blocks, None, math.ceil(math.log2(self.max_block))
+
+    # -- wire codec: the pow2 size exponent, exactly the booked overhead --
+    def encode_plan(self, plan: "BlockPlan", w) -> None:
+        from repro_torch.wire import codecs as wcodecs
+        wcodecs.put_plan_avg(w, plan.size, self.max_block)
+
+    def decode_plan(self, r, d: int) -> "BlockPlan":
+        from repro_torch.wire import codecs as wcodecs
+        size = wcodecs.get_plan_avg(r, self.max_block)
+        return BlockPlan(size=size, n_blocks=_pad_to(d, size) // size, seg_ids=None,
+                         overhead_bits=math.ceil(math.log2(self.max_block)))
 
     # -- bucketed (fused) control plane -----------------------------------
 
@@ -241,6 +264,31 @@ class AdaptiveAllocation:
         seg = np.cumsum(seg).astype(np.int32)
         overhead = (int(seg.max()) + 1) * math.ceil(math.log2(self.max_block))
         return None, int(seg.max()) + 1, seg, float(overhead)
+
+    # -- wire codec: one (length - 1) field per billable segment ----------
+    # The cold-start plan (no KL profile yet) books zero overhead, so it
+    # writes zero bits; the decoder detects the empty header and rebuilds
+    # the deterministic fixed-256 fallback from ``d`` alone.
+
+    def _cold_plan(self, d: int) -> "BlockPlan":
+        size = 256
+        n_blocks = _pad_to(d, size) // size
+        seg = np.minimum(np.arange(d) // size, n_blocks - 1).astype(np.int32)
+        return BlockPlan(size=None, n_blocks=n_blocks, seg_ids=seg, overhead_bits=0.0)
+
+    def encode_plan(self, plan: "BlockPlan", w) -> None:
+        from repro_torch.wire import codecs as wcodecs
+        if plan.overhead_bits:
+            wcodecs.put_plan_segments(w, plan.seg_ids, self.max_block)
+
+    def decode_plan(self, r, d: int) -> "BlockPlan":
+        from repro_torch.wire import codecs as wcodecs
+        if r.bits_left == 0:
+            return self._cold_plan(d)
+        seg = wcodecs.get_plan_segments(r, d, self.max_block)
+        n_seg = int(seg[-1]) + 1
+        overhead = n_seg * math.ceil(math.log2(self.max_block))
+        return BlockPlan(size=None, n_blocks=n_seg, seg_ids=seg, overhead_bits=float(overhead))
 
     # -- bucketed (fused) control plane -----------------------------------
 

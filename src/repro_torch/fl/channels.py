@@ -26,15 +26,24 @@ also holds BiCompFL-GR-CFL's ``QuantizedMRCUplink`` (stochastic sign +
 MRC against the Ber(1/2) prior) and the baselines' channels:
 ``DenseChannel``, ``SignEFChannel`` (sign + error feedback, also
 Neolithic's repeated passes), ``TopKEFChannel`` and ``SliceDownlink``
-(M3).  Those are step functions only: the reference's object shells that
-keep the error-feedback memory in the channel (``transmit`` /
-``distribute`` / ``flush`` / ``export_state`` on the EF channels), the
-wire codecs (``encode_up``, ``decode_up`` and friends, ``flush_wire``) come
-later.  The reference's ``pin`` is not needed: the port's fused path
-replays the very kernels its host loop launches, so nothing is contracted
-across stage boundaries.  Every channel also runs inside a captured CUDA
-graph: no host copy, no host read, the cohort (``ctx.active``) and the plan
-of a fused round already on the device.
+(M3).
+
+Every channel also speaks the reference's wire and shell protocol, which
+the engine's ``wire="audit"`` host rounds run (``repro_torch.wire``):
+``encode_up`` / ``decode_up`` (uplinks) and ``encode_down`` /
+``decode_down`` (downlinks) serialize exactly the values the step
+functions select -- MRC indices, plan-free dense and sign payloads, top-k
+records -- and decode them back to the identical tensors; the tensors
+cross to numpy only at that codec boundary.  The object shells
+(``transmit`` / ``transmit_wire``, ``distribute`` / ``distribute_wire``,
+``flush`` / ``flush_wire`` / ``decode_flush_up``, ``export_state`` /
+``import_state`` / ``reset``) keep the error-feedback memory in
+``self._e``, as the reference does.  The reference's ``pin`` is not
+needed: the port's fused path replays the very kernels its host loop
+launches, so nothing is contracted across stage boundaries.  Every step
+function also runs inside a captured CUDA graph: no host copy, no host
+read, the cohort (``ctx.active``) and the plan of a fused round already on
+the device.
 
 The key-derivation tags are the reference's, so both packages draw the same
 candidates and selections in every round.
@@ -42,7 +51,7 @@ candidates and selections in every round.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -53,7 +62,10 @@ from repro_torch.core import mrc
 from repro_torch.core.bernoulli import clip01
 from repro_torch.core.blocks import BlockPlan  # noqa: F401  (travels with the API)
 from repro_torch.core.quantizers import (FLOAT_BITS, mean_abs, sign_compress, stochastic_sign,
-                                         topk_bits, topk_compress)
+                                         topk_bits, topk_compress, topk_indices)
+from repro_torch.wire import (DIR_DOWN, DIR_FLUSH_UP, DIR_UP, SERVER, BitReader, BitWriter,
+                              Message)
+from repro_torch.wire import codecs as wcodecs
 
 # ---------------------------------------------------------------------------
 # Key-derivation tags (shared-randomness schedule, identical to the reference).
@@ -109,6 +121,12 @@ class RoundContext:
     d: int
     active: Any           # sorted global ids of the participating cohort
     plan: Optional[BlockPlan] = None
+    # Aggregation weights over cohort positions under injected faults
+    # (repro_torch.fl.faults): 0.0 for dropped / straggling / lost-uplink
+    # clients, 1.0 for contributors; a float32 tensor on the round's device.
+    # None on fault-free rounds, which keeps every aggregate bit-identical
+    # to the fault-free engine's.
+    up_weight: Any = None
 
     @property
     def n_active(self) -> int:
@@ -141,6 +159,78 @@ class DownlinkResult(NamedTuple):
     bits: float
 
 
+@dataclass(frozen=True)
+class WireEnv:
+    """Decoder-side context for ``decode_down`` (cf. repro_torch.wire).
+
+    Everything here is information the *receiving* party legitimately holds:
+    its own uplink transmission (``up_msgs``, for index-relay downlinks),
+    the shared uplink/aggregator definitions, the round's priors, and --
+    server-side only -- the aggregator's proposed :class:`ServerUpdate`
+    (used where the downlink result's ``theta`` never crosses the wire
+    because it stays on the federator).
+    """
+
+    uplink: Any
+    aggregator: Any
+    priors: Any
+    up_msgs: Any
+    update: ServerUpdate
+
+
+def _wire_msg(direction: int, sender: int, recipient: int, w: BitWriter) -> Message:
+    """Seal a finished payload writer into an (unstamped) frame."""
+    return Message(direction=direction, sender=int(sender), recipient=int(recipient),
+                   payload=w.getvalue(), payload_bits=w.bits_written)
+
+
+def _wire_reader(m: Message) -> BitReader:
+    return BitReader(m.payload, m.payload_bits)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values on the host: the codecs' side of the boundary."""
+    return t.detach().cpu().numpy()
+
+
+def _active(ctx) -> np.ndarray:
+    """The round's cohort ids on the host."""
+    a = ctx.active
+    return _host(a) if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _index_msgs(direction: int, ctx, idxs: torch.Tensor, n_is: int, *, up: bool):
+    """One frame of MRC indices per cohort member: row j of ``idxs`` to
+    (uplink) or from (downlink) the j-th active client."""
+    rows = _host(idxs)
+    msgs = []
+    for j, cid in enumerate(_active(ctx)):
+        w = BitWriter()
+        wcodecs.put_indices(w, rows[j], n_is)
+        msgs.append(_wire_msg(direction, cid, SERVER, w) if up
+                    else _wire_msg(direction, SERVER, cid, w))
+    return msgs
+
+
+def _read_indices(msgs, shape, n_is: int, device) -> torch.Tensor:
+    """The frames' index arrays stacked, ``(len(msgs), *shape)`` int64 on
+    ``device``; each frame must be exactly consumed."""
+    idxs = []
+    for m in msgs:
+        r = _wire_reader(m)
+        idxs.append(wcodecs.get_indices(r, shape, n_is))
+        r.expect_exhausted()
+    return torch.as_tensor(np.stack(idxs).astype(np.int64), device=device)
+
+
+def _read_dense_mean(msgs, d: int) -> torch.Tensor:
+    """The mean of the frames' dense rows, rounded as the reference's
+    ``jnp.mean`` (the EF flush residual the uplinks send), on the host: the
+    engine moves it to the model's device."""
+    rows = [wcodecs.get_dense(_wire_reader(m), d) for m in msgs]
+    return mrc.sample_mean(torch.as_tensor(np.stack(rows)))
+
+
 # ---------------------------------------------------------------------------
 # Shells: the object API over the pure step functions.
 # ---------------------------------------------------------------------------
@@ -152,26 +242,66 @@ class StatelessUplink:
     def init_up_state(self, n: int, d: int, device):
         return EMPTY_STATE
 
+    def export_state(self):
+        """Shell-state snapshot (fault-injection carry; trivial here)."""
+        return EMPTY_STATE
+
+    def import_state(self, state) -> None:
+        pass
+
     def transmit(self, ctx, payload, priors):
         out, bits, _ = self.step_up(ctx, EMPTY_STATE, payload, priors)
         return out, bits
 
+    def transmit_wire(self, ctx, payload, priors):
+        """Like ``transmit`` but also returns the encoded wire messages."""
+        out, bits, _, msgs = self.encode_up(ctx, EMPTY_STATE, payload, priors)
+        return out, bits, msgs
+
     def flush_step(self, state, n: int, d: int):
         return 0.0, 0.0, state
+
+    def flush(self, n: int, d: int):
+        return 0.0, 0.0
+
+    def flush_wire(self, n: int, d: int):
+        r, bits = self.flush(n, d)
+        return r, bits, []
+
+    def decode_flush_up(self, msgs, n: int, d: int):
+        return 0.0
 
 
 class StatelessDownlink:
     """Object shell + trivial state for downlinks without memory."""
 
+    # Downlink audience: "all" (every client holds an estimate of the
+    # broadcast) or "active" (client-specific payloads for the cohort
+    # only).  The engine's fault booking scales per-recipient bits by it.
+    downlink_recipients = "all"
+
     def init_down_state(self, n: int, d: int, device):
         return EMPTY_STATE
+
+    def export_state(self):
+        return EMPTY_STATE
+
+    def import_state(self, state) -> None:
+        pass
 
     def distribute(self, ctx, update, theta, theta_hat):
         res, _ = self.step_down(ctx, EMPTY_STATE, update, theta, theta_hat)
         return res
 
+    def distribute_wire(self, ctx, update, theta, theta_hat, up_msgs):
+        res, _, msgs = self.encode_down(ctx, EMPTY_STATE, update, theta, theta_hat, up_msgs)
+        return res, msgs
+
     def flush_step(self, state, n: int, d: int):
         return 0.0, 0.0, state
+
+    def flush(self, n: int, d: int):
+        return 0.0, 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -210,6 +340,20 @@ class MRCFixedChannel(StatelessUplink):
     def step_up(self, ctx, state, payload, priors):
         _, q_hat, bits = self._transmit(ctx, payload, priors)
         return q_hat, bits, state
+
+    # -- wire codec: per client, its (n_samples, B) index stream -----------
+
+    def encode_up(self, ctx, state, payload, priors):
+        idxs, q_hat, bits = self._transmit(ctx, payload, priors)
+        return q_hat, bits, state, _index_msgs(DIR_UP, ctx, idxs, self.n_is, up=True)
+
+    def decode_up(self, ctx, msgs, priors):
+        plan, kt = ctx.plan, ctx.key
+        idxs = _read_indices(msgs, (self.n_samples, plan.n_blocks), self.n_is, priors.device)
+        skey = kt if self.shared else mrc.client_key(kt, ctx.active_ids)
+        q_hat_b = mrc.receive_fixed(skey, idxs, to_blocks(clip01(priors), plan.size),
+                                    n_is=self.n_is)
+        return from_blocks(q_hat_b, ctx.d)
 
 
 # ---------------------------------------------------------------------------
@@ -250,6 +394,18 @@ class MRCAdaptiveChannel(StatelessUplink):
     def step_up(self, ctx, state, payload, priors):
         _, q_hat, bits = self._transmit(ctx, payload, priors)
         return q_hat, bits, state
+
+    # -- wire codec: per client, its (n_samples, n_seg) index stream -------
+
+    def encode_up(self, ctx, state, payload, priors):
+        idxs, q_hat, bits = self._transmit(ctx, payload, priors)
+        return q_hat, bits, state, _index_msgs(DIR_UP, ctx, idxs, self.n_is, up=True)
+
+    def decode_up(self, ctx, msgs, priors):
+        plan, kt = ctx.plan, ctx.key
+        idxs = _read_indices(msgs, (self.n_samples, plan.n_blocks), self.n_is, priors.device)
+        skey = kt if self.shared else mrc.client_key(kt, ctx.active_ids)
+        return mrc.receive_segments(skey, idxs, clip01(priors), plan.seg_ids, n_is=self.n_is)
 
 
 # ---------------------------------------------------------------------------
@@ -292,6 +448,37 @@ class QuantizedMRCUplink(StatelessUplink):
         _, _, g_hat, bits = self._transmit(ctx, payload, priors)
         return g_hat, bits, state
 
+    # -- wire codec ----------------------------------------------------------
+    # Payload per client: the f32 temperature K (the booked 32-bit side
+    # information), then the MRC index stream.
+
+    def encode_up(self, ctx, state, payload, priors):
+        idxs, ks, g_hat, bits = self._transmit(ctx, payload, priors)
+        idxs, ks = _host(idxs), _host(ks)
+        msgs = []
+        for j, cid in enumerate(_active(ctx)):
+            w = BitWriter()
+            w.write_f32(ks[j])
+            wcodecs.put_indices(w, idxs[j], self.n_is)
+            msgs.append(_wire_msg(DIR_UP, cid, SERVER, w))
+        return g_hat, bits, state, msgs
+
+    def decode_up(self, ctx, msgs, priors):
+        plan, kt, d = ctx.plan, ctx.key, ctx.d
+        shape = (self.n_samples, plan.n_blocks)
+        ks, idxs = [], []
+        for m in msgs:
+            r = _wire_reader(m)
+            ks.append(r.read_f32())
+            idxs.append(wcodecs.get_indices(r, shape, self.n_is))
+            r.expect_exhausted()
+        dev = ctx.key.device
+        ks = torch.as_tensor(np.stack(ks), device=dev)[:, None]
+        idxs = torch.as_tensor(np.stack(idxs).astype(np.int64), device=dev)
+        p_blocks = torch.full((plan.n_blocks, plan.size), 0.5, dtype=torch.float32, device=dev)
+        q_hat_b = mrc.receive_fixed(kt, idxs, p_blocks, n_is=self.n_is)
+        return (2.0 * from_blocks(q_hat_b, d) - 1.0) * ks
+
 
 # ---------------------------------------------------------------------------
 # BiCompFL-GR downlink.
@@ -319,6 +506,42 @@ class IndexRelayDownlink(StatelessDownlink):
         bits = n * (n - 1) * (self.n_samples * ctx.plan.billable
                               * math.log2(self.n_is) + self.side_info_bits)
         return DownlinkResult(th, th[None].repeat(n, 1), bits), state
+
+    # -- wire codec ----------------------------------------------------------
+    # The relay's payloads ARE the uplink payloads: each client receives the
+    # (n-1) other clients' frames verbatim (for CFL those frames already
+    # carry the K side information the channel books).
+
+    def encode_down(self, ctx, state, update, theta, theta_hat, up_msgs):
+        res, state = self.step_down(ctx, state, update, theta, theta_hat)
+        if len(up_msgs) != ctx.n_clients:
+            raise ValueError("index relay needs every client's uplink frame")
+        msgs = []
+        for rcpt in _active(ctx):
+            for m in up_msgs:
+                if m.sender == int(rcpt):
+                    continue
+                msgs.append(Message(direction=DIR_DOWN, sender=m.sender,
+                                    recipient=int(rcpt), payload=m.payload,
+                                    payload_bits=m.payload_bits))
+        return res, state, msgs
+
+    def decode_down(self, ctx, msgs, theta, theta_hat, env: WireEnv):
+        """Reconstruct through the *first* client's receive path: its own
+        transmission plus the n-1 relays, decoded with the shared uplink
+        codec and re-aggregated -- with common candidates this must land on
+        exactly the server's model."""
+        n = ctx.n_clients
+        active = _active(ctx)
+        ref = int(active[0])
+        by_sender = {m.sender: m for m in msgs if m.recipient == ref}
+        own = [m for m in env.up_msgs if m.sender == ref]
+        ordered = [own[0] if int(cid) == ref else by_sender[int(cid)] for cid in active]
+        up_out = env.uplink.decode_up(ctx, ordered, env.priors)
+        th = env.aggregator(ctx, theta, up_out).theta
+        bits = n * (n - 1) * (self.n_samples * ctx.plan.billable
+                              * math.log2(self.n_is) + self.side_info_bits)
+        return DownlinkResult(th, th[None].repeat(n, 1), bits)
 
 
 # ---------------------------------------------------------------------------
@@ -360,6 +583,35 @@ class MRCBroadcastDownlink(StatelessDownlink):
         return DownlinkResult(update.theta, clip01(est)[None].repeat(ctx.n_clients, 1),
                               bits), state
 
+    # -- wire codec ----------------------------------------------------------
+    # One index stream, broadcast: a frame with the same payload to every
+    # active client (the channel bills per client, so the totals match).
+
+    def encode_down(self, ctx, state, update, theta, theta_hat, up_msgs):
+        idxs, est, bits = self._transmit(ctx, update, theta_hat)
+        w = BitWriter()
+        wcodecs.put_indices(w, _host(idxs), self.n_is)
+        payload, nbits = w.getvalue(), w.bits_written
+        msgs = [Message(direction=DIR_DOWN, sender=SERVER, recipient=int(cid),
+                        payload=payload, payload_bits=nbits) for cid in _active(ctx)]
+        res = DownlinkResult(update.theta, clip01(est)[None].repeat(ctx.n_clients, 1), bits)
+        return res, state, msgs
+
+    def decode_down(self, ctx, msgs, theta, theta_hat, env: WireEnv):
+        kt, plan, d = ctx.key, ctx.plan, ctx.d
+        skey = prng.fold_in(kt, TAG_DL_SHARED)
+        idxs = _read_indices(msgs[:1], (self.n_samples, plan.n_blocks), self.n_is,
+                             theta_hat.device)[0]
+        p_common = clip01(theta_hat[0])
+        if plan.adaptive:
+            est = mrc.receive_segments(skey, idxs, p_common, plan.seg_ids, n_is=self.n_is)
+        else:
+            est = from_blocks(mrc.receive_fixed(skey, idxs, to_blocks(p_common, plan.size),
+                                                n_is=self.n_is), d)
+        bits = ctx.n_clients * self.n_samples * plan.billable * math.log2(self.n_is)
+        return DownlinkResult(env.update.theta,
+                              clip01(est)[None].repeat(ctx.n_clients, 1), bits)
+
 
 @dataclass
 class MRCPrivateDownlink(StatelessDownlink):
@@ -372,6 +624,7 @@ class MRCPrivateDownlink(StatelessDownlink):
     n_is: int = 256
     n_samples: int = 1           # n_DL
     broadcast_shareable: bool = False
+    downlink_recipients = "active"  # client-specific payloads, cohort only
 
     def _transmit(self, ctx, update, theta_hat):
         """Returns (indices (n_act, n_samples, B), estimates (n_act, d), bits)."""
@@ -398,6 +651,32 @@ class MRCPrivateDownlink(StatelessDownlink):
         theta_hat = theta_hat.clone()
         theta_hat[ctx.active_ids] = clip01(est)
         return DownlinkResult(update.theta, theta_hat, bits), state
+
+    # -- wire codec: per active client, its (n_samples, B) index stream ------
+
+    def encode_down(self, ctx, state, update, theta, theta_hat, up_msgs):
+        idxs, est, bits = self._transmit(ctx, update, theta_hat)
+        new_hat = theta_hat.clone()
+        new_hat[ctx.active_ids] = clip01(est)
+        return (DownlinkResult(update.theta, new_hat, bits), state,
+                _index_msgs(DIR_DOWN, ctx, idxs, self.n_is, up=False))
+
+    def decode_down(self, ctx, msgs, theta, theta_hat, env: WireEnv):
+        kt, plan, d = ctx.key, ctx.plan, ctx.d
+        ids = ctx.active_ids
+        skeys = prng.fold_in(mrc.client_key(kt, ids), TAG_DL_SHARED)
+        priors = clip01(theta_hat[ids])
+        idxs = _read_indices(msgs, (self.n_samples, plan.n_blocks), self.n_is,
+                             theta_hat.device)
+        if plan.adaptive:
+            est = mrc.receive_segments(skeys, idxs, priors, plan.seg_ids, n_is=self.n_is)
+        else:
+            est = from_blocks(mrc.receive_fixed(skeys, idxs, to_blocks(priors, plan.size),
+                                                n_is=self.n_is), d)
+        new_hat = theta_hat.clone()
+        new_hat[ids] = clip01(est)
+        bits = ctx.n_active * self.n_samples * plan.billable * math.log2(self.n_is)
+        return DownlinkResult(env.update.theta, new_hat, bits)
 
 
 _OWNERSHIP: dict = {}
@@ -441,33 +720,62 @@ class SplitBlockDownlink(StatelessDownlink):
                 SplitBlockDownlink._ownership(n, n_blocks)[0], device=device)
         return own
 
-    def _transmit(self, ctx, update, theta_hat):
-        """Returns (indices (n, n_samples, max_len), new theta_hat (n, d), bits)."""
-        kt, plan, d = ctx.key, ctx.plan, ctx.d
+    def _frame(self, ctx, theta_hat):
+        """What encoder and decoder share: the clients' candidate keys, the
+        estimates' blocks with the sentinel appended ``(n, B + 1, S)``, the
+        gather index of each client's owned list ``(n, max_len, S)``, and
+        the bits."""
+        plan = ctx.plan
         if plan.adaptive:
             raise NotImplementedError("SplitDL is defined on fixed blocks")
         n, size, n_blocks = ctx.n_clients, plan.size, plan.n_blocks
         max_len = -(-n_blocks // n)
         own = self._ownership_on(n, n_blocks, theta_hat.device)
-        tb = to_blocks(update.theta, size)                         # (B, S)
-        dummy = tb.new_full((1, size), 0.5)
-        tb_ext = torch.cat([tb, dummy])                            # (B + 1, S)
         hb_ext = torch.cat([to_blocks(clip01(theta_hat), size),
-                            dummy[None].expand(n, 1, size)], dim=1)  # (n, B + 1, S)
+                            theta_hat.new_full((n, 1, size), 0.5)], dim=1)  # (n, B + 1, S)
         ids = torch.arange(n, dtype=torch.int64, device=theta_hat.device)
-        skeys = prng.fold_in(mrc.client_key(kt, ids), TAG_DL_SHARED)
-        sels = _vfold(prng.fold_in(kt, TAG_DL_SELECT_PRIVATE), ids)
+        skeys = prng.fold_in(mrc.client_key(ctx.key, ids), TAG_DL_SHARED)
         rows = own[..., None].expand(n, max_len, size)
+        bits = n * self.n_samples * max_len * math.log2(self.n_is)
+        return own, hb_ext, skeys, rows, bits
+
+    def _place(self, ctx, hb_ext, rows, est_b):
+        """The new estimates: each client's owned blocks replaced."""
+        hb_ext = hb_ext.scatter(1, rows, clip01(est_b))  # owned lists hold no repeats
+        return from_blocks(hb_ext[:, :ctx.plan.n_blocks], ctx.d)
+
+    def _transmit(self, ctx, update, theta_hat):
+        """Returns (indices (n, n_samples, max_len), new theta_hat (n, d), bits)."""
+        own, hb_ext, skeys, rows, bits = self._frame(ctx, theta_hat)
+        tb = to_blocks(update.theta, ctx.plan.size)                 # (B, S)
+        tb_ext = torch.cat([tb, tb.new_full((1, ctx.plan.size), 0.5)])  # (B + 1, S)
+        ids = torch.arange(ctx.n_clients, dtype=torch.int64, device=theta_hat.device)
+        sels = _vfold(prng.fold_in(ctx.key, TAG_DL_SELECT_PRIVATE), ids)
         idxs, est_b = mrc.transmit_fixed(
             skeys, sels, tb_ext[own], torch.take_along_dim(hb_ext, rows, dim=1),
             n_is=self.n_is, n_samples=self.n_samples)
-        hb_ext = hb_ext.scatter(1, rows, clip01(est_b))  # owned lists hold no repeats
-        bits = n * self.n_samples * max_len * math.log2(self.n_is)
-        return idxs, from_blocks(hb_ext[:, :n_blocks], d), bits
+        return idxs, self._place(ctx, hb_ext, rows, est_b), bits
 
     def step_down(self, ctx, state, update, theta, theta_hat):
         _, theta_hat, bits = self._transmit(ctx, update, theta_hat)
         return DownlinkResult(update.theta, theta_hat, bits), state
+
+    # -- wire codec ----------------------------------------------------------
+    # Per client: indices for its (padded) owned-block subset, sentinel
+    # included -- the channel bills the padding, so the wire carries it.
+
+    def encode_down(self, ctx, state, update, theta, theta_hat, up_msgs):
+        idxs, new_hat, bits = self._transmit(ctx, update, theta_hat)
+        return (DownlinkResult(update.theta, new_hat, bits), state,
+                _index_msgs(DIR_DOWN, ctx, idxs, self.n_is, up=False))
+
+    def decode_down(self, ctx, msgs, theta, theta_hat, env: WireEnv):
+        own, hb_ext, skeys, rows, bits = self._frame(ctx, theta_hat)
+        idxs = _read_indices(msgs, (self.n_samples, own.shape[1]), self.n_is,
+                             theta_hat.device)
+        est_b = mrc.receive_fixed(skeys, idxs, torch.take_along_dim(hb_ext, rows, dim=1),
+                                  n_is=self.n_is)
+        return DownlinkResult(env.update.theta, self._place(ctx, hb_ext, rows, est_b), bits)
 
 
 # ---------------------------------------------------------------------------
@@ -493,14 +801,114 @@ class DenseChannel(StatelessUplink, StatelessDownlink):
         # Stateless: a periodic sync through a dense channel only costs bits.
         return 0.0, n * d * FLOAT_BITS, state
 
+    def flush(self, n, d):
+        return 0.0, n * d * FLOAT_BITS
+
+    # -- wire codec: raw big-endian f32 vectors ------------------------------
+
+    def encode_up(self, ctx, state, payload, priors):
+        rows = _host(payload)
+        msgs = []
+        for j, cid in enumerate(_active(ctx)):
+            w = BitWriter()
+            wcodecs.put_dense(w, rows[j])
+            msgs.append(_wire_msg(DIR_UP, cid, SERVER, w))
+        return payload, ctx.n_active * ctx.d * FLOAT_BITS, state, msgs
+
+    def decode_up(self, ctx, msgs, priors):
+        rows = []
+        for m in msgs:
+            r = _wire_reader(m)
+            rows.append(wcodecs.get_dense(r, ctx.d))
+            r.expect_exhausted()
+        return torch.as_tensor(np.stack(rows), device=ctx.key.device)
+
+    def encode_down(self, ctx, state, update, theta, theta_hat, up_msgs):
+        res, state = self.step_down(ctx, state, update, theta, theta_hat)
+        w = BitWriter()
+        wcodecs.put_dense(w, _host(update.theta))
+        payload, nbits = w.getvalue(), w.bits_written
+        msgs = [Message(direction=DIR_DOWN, sender=SERVER, recipient=cid,
+                        payload=payload, payload_bits=nbits) for cid in range(ctx.n_clients)]
+        return res, state, msgs
+
+    def decode_down(self, ctx, msgs, theta, theta_hat, env: WireEnv):
+        r = _wire_reader(msgs[0])
+        th = torch.as_tensor(wcodecs.get_dense(r, ctx.d), device=theta.device)
+        r.expect_exhausted()
+        return DownlinkResult(th, th[None].repeat(ctx.n_clients, 1),
+                              ctx.n_clients * ctx.d * FLOAT_BITS)
+
+    def flush_wire(self, n, d):
+        # Dense channels hold no EF memory: the sync uplink is the zero
+        # residual, serialized at the billed dense rate.
+        r, bits = self.flush(n, d)
+        msgs = []
+        for cid in range(n):
+            w = BitWriter()
+            wcodecs.put_dense(w, np.zeros(d, np.float32))
+            msgs.append(_wire_msg(DIR_FLUSH_UP, cid, SERVER, w))
+        return r, bits, msgs
+
+    def decode_flush_up(self, msgs, n, d):
+        return _read_dense_mean(msgs, d)
+
 
 def _require_full_cohort(ctx):
     if ctx.n_active != ctx.n_clients:
         raise ValueError("error-feedback uplinks require full participation")
 
 
+class _EFShell:
+    """The object shell of an error-feedback channel: the memory lives in
+    ``self._e`` (None until the first round), threaded through the pure
+    step functions, as in the reference."""
+
+    def transmit(self, ctx, payload, priors):
+        if self._e is None:
+            self._e = torch.zeros_like(payload)
+        out, bits, self._e = self.step_up(ctx, self._e, payload, priors)
+        return out, bits
+
+    def transmit_wire(self, ctx, payload, priors):
+        if self._e is None:
+            self._e = torch.zeros_like(payload)
+        out, bits, self._e, msgs = self.encode_up(ctx, self._e, payload, priors)
+        return out, bits, msgs
+
+    def flush(self, n, d):
+        if self._e is None:
+            return 0.0, n * d * FLOAT_BITS
+        r, bits, self._e = self.flush_step(self._e, n, d)
+        return r, bits
+
+    def flush_wire(self, n, d):
+        """Uplink EF sync: every client uploads its dense residual row."""
+        e = self._e if self._e is not None else torch.zeros((n, d), dtype=torch.float32)
+        rows = _host(e if e.dim() == 2 else e[None].expand(n, d))
+        msgs = []
+        for cid in range(n):
+            w = BitWriter()
+            wcodecs.put_dense(w, rows[cid])
+            msgs.append(_wire_msg(DIR_FLUSH_UP, cid, SERVER, w))
+        r, bits = self.flush(n, d)
+        return r, bits, msgs
+
+    def decode_flush_up(self, msgs, n, d):
+        return _read_dense_mean(msgs, d)
+
+    def export_state(self):
+        return self._e
+
+    def import_state(self, state) -> None:
+        self._e = state
+
+    def reset(self):
+        self._e = None
+
+
 @dataclass
-class SignEFChannel:
+class SignEFChannel(_EFShell):
     """Sign compression with error feedback; ``passes > 1`` repeats the
     compression on the residual (Neolithic's R-pass scheme, ~``passes``
     bits/param).
@@ -512,6 +920,7 @@ class SignEFChannel:
 
     passes: int = 1
     broadcast_shareable: bool = True
+    _e: Optional[torch.Tensor] = field(default=None, repr=False)
 
     def _compress_passes(self, v):
         """Iterated sign compression over the last axis, also yielding the
@@ -561,12 +970,83 @@ class SignEFChannel:
         r = mrc.sample_mean(e) if e.dim() == 2 else e
         return r, n * d * FLOAT_BITS, torch.zeros_like(e)
 
+    # -- wire codec ----------------------------------------------------------
+    # Per client (uplink) / broadcast (downlink): ``passes`` records of one
+    # f32 scale + a d-bit sign bitmap -- the booked passes * (d + 32).
+
+    def _decode_compressed(self, r, d, device):
+        c = None
+        for _ in range(self.passes):
+            scale, sgn = wcodecs.get_sign_pass(r, d)
+            sgn = torch.as_tensor(sgn, device=device)
+            step = torch.tensor(scale, device=device) * torch.where(sgn, 1.0, -1.0)
+            c = step if c is None else c + step
+        return c
+
+    def _sign_payload(self, comps, j=None):
+        w = BitWriter()
+        for scale, sgn in comps:
+            scale, sgn = _host(scale), _host(sgn)
+            if j is not None:
+                scale, sgn = scale[j], sgn[j]
+            wcodecs.put_sign_pass(w, scale.reshape(-1)[0], sgn)
+        return w
+
+    def encode_up(self, ctx, e, payload, priors):
+        _require_full_cohort(ctx)
+        acc = payload + e
+        c, comps = self._compress_passes(acc)
+        msgs = [_wire_msg(DIR_UP, cid, SERVER, self._sign_payload(comps, j))
+                for j, cid in enumerate(_active(ctx))]
+        return c, self._bits(ctx), acc - c, msgs
+
+    def decode_up(self, ctx, msgs, priors):
+        rows = []
+        for m in msgs:
+            r = _wire_reader(m)
+            rows.append(self._decode_compressed(r, ctx.d, ctx.key.device))
+            r.expect_exhausted()
+        return torch.stack(rows)
+
+    def encode_down(self, ctx, e, update, theta, theta_hat, up_msgs):
+        g = update.delta if update.delta is not None \
+            else (theta - update.theta) / update.lr
+        agg = g + e
+        c_s, comps = self._compress_passes(agg)
+        w = self._sign_payload(comps)
+        payload, nbits = w.getvalue(), w.bits_written
+        msgs = [Message(direction=DIR_DOWN, sender=SERVER, recipient=cid,
+                        payload=payload, payload_bits=nbits) for cid in range(ctx.n_clients)]
+        res = DownlinkResult(theta - update.lr * c_s, theta_hat - update.lr * c_s[None, :],
+                             self._bits(ctx))
+        return res, agg - c_s, msgs
+
+    def decode_down(self, ctx, msgs, theta, theta_hat, env: WireEnv):
+        r = _wire_reader(msgs[0])
+        c_s = self._decode_compressed(r, ctx.d, theta.device)
+        r.expect_exhausted()
+        lr = env.update.lr
+        return DownlinkResult(theta - lr * c_s, theta_hat - lr * c_s[None, :], self._bits(ctx))
+
+    def distribute(self, ctx, update, theta, theta_hat):
+        if self._e is None:
+            self._e = torch.zeros_like(theta)
+        res, self._e = self.step_down(ctx, self._e, update, theta, theta_hat)
+        return res
+
+    def distribute_wire(self, ctx, update, theta, theta_hat, up_msgs):
+        if self._e is None:
+            self._e = torch.zeros_like(theta)
+        res, self._e, msgs = self.encode_down(ctx, self._e, update, theta, theta_hat, up_msgs)
+        return res, msgs
+
 
 @dataclass
-class TopKEFChannel:
+class TopKEFChannel(_EFShell):
     """Top-k sparsification with error feedback (M3 uplink, k = d/n)."""
 
-    k: int
+    k: int = 1
+    _e: Optional[torch.Tensor] = field(default=None, repr=False)
 
     def init_up_state(self, n, d, device):
         return torch.zeros((n, d), dtype=torch.float32, device=device)
@@ -580,6 +1060,36 @@ class TopKEFChannel:
     def flush_step(self, e, n, d):
         return mrc.sample_mean(e), n * d * FLOAT_BITS, torch.zeros_like(e)
 
+    # -- wire codec ----------------------------------------------------------
+    # Per client: k records of (ceil(log2 d)-bit index, f32 value) -- the
+    # booked topk_bits(d, k), in ``lax.top_k``'s order.
+
+    def encode_up(self, ctx, e, payload, priors):
+        _require_full_cohort(ctx)
+        acc = payload + e
+        idxs = topk_indices(acc, self.k)
+        vals = _host(torch.gather(acc, -1, idxs))
+        c = topk_compress(acc, self.k)
+        idxs = _host(idxs)
+        msgs = []
+        for j, cid in enumerate(_active(ctx)):
+            w = BitWriter()
+            wcodecs.put_topk(w, idxs[j], vals[j], ctx.d)
+            msgs.append(_wire_msg(DIR_UP, cid, SERVER, w))
+        return c, ctx.n_clients * topk_bits(ctx.d, self.k), acc - c, msgs
+
+    def decode_up(self, ctx, msgs, priors):
+        kk, dev = min(self.k, ctx.d), ctx.key.device
+        rows = []
+        for m in msgs:
+            r = _wire_reader(m)
+            idx, vals = wcodecs.get_topk(r, kk, ctx.d)
+            r.expect_exhausted()
+            rows.append(torch.zeros(ctx.d, dtype=torch.float32, device=dev).scatter(
+                0, torch.as_tensor(idx.astype(np.int64), device=dev),
+                torch.as_tensor(vals, device=dev)))
+        return torch.stack(rows)
+
 
 @dataclass
 class SliceDownlink(StatelessDownlink):
@@ -592,12 +1102,40 @@ class SliceDownlink(StatelessDownlink):
     k: int
     broadcast_shareable: bool = False
 
+    def _bounds(self, n, d):
+        k = self.k
+        return [(i * k, d if i == n - 1 else min((i + 1) * k, d)) for i in range(n)]
+
     def step_down(self, ctx, state, update, theta, theta_hat):
-        n, d, k = ctx.n_clients, ctx.d, self.k
+        n, d = ctx.n_clients, ctx.d
         th = update.theta
         new_hat = theta_hat.clone()
-        for i in range(n):
-            lo = i * k
-            hi = d if i == n - 1 else min((i + 1) * k, d)
+        for i, (lo, hi) in enumerate(self._bounds(n, d)):
             new_hat[i, lo:hi] = th[lo:hi]
         return DownlinkResult(th, new_hat, n * (d / n) * FLOAT_BITS), state
+
+    # -- wire codec ----------------------------------------------------------
+    # Client i's message carries its dense f32 slice [i*k, hi); the slices
+    # tile [0, d) so the stream totals d * 32 bits == the booked
+    # n * (d/n) * 32 up to float round-off (cf. RECONCILE_REL_TOL).
+
+    def encode_down(self, ctx, state, update, theta, theta_hat, up_msgs):
+        res, state = self.step_down(ctx, state, update, theta, theta_hat)
+        th = _host(res.theta)
+        msgs = []
+        for cid, (lo, hi) in enumerate(self._bounds(ctx.n_clients, ctx.d)):
+            w = BitWriter()
+            wcodecs.put_dense(w, th[lo:hi])
+            msgs.append(_wire_msg(DIR_DOWN, SERVER, cid, w))
+        return res, state, msgs
+
+    def decode_down(self, ctx, msgs, theta, theta_hat, env: WireEnv):
+        n, d = ctx.n_clients, ctx.d
+        by_recipient = {m.recipient: m for m in msgs}
+        new_hat = theta_hat.clone()
+        for cid, (lo, hi) in enumerate(self._bounds(n, d)):
+            r = _wire_reader(by_recipient[cid])
+            sl = wcodecs.get_dense(r, hi - lo)
+            r.expect_exhausted()
+            new_hat[cid, lo:hi] = torch.as_tensor(sl, device=theta_hat.device)
+        return DownlinkResult(env.update.theta, new_hat, n * (d / n) * FLOAT_BITS)

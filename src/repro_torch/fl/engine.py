@@ -5,47 +5,74 @@ aggregator, block allocation, EF sync period) run by :class:`FLEngine`.
 The engine owns what every scheme shares: the shared-randomness key
 schedule, the block-allocation control plane, the channels' explicit state
 carry, the periodic error-feedback sync (CSER / LIEC), BitMeter
-accounting, the cohort schedule and the evaluation history.  Under partial
-participation (``EngineSpec.participation`` < 1, the PR variants only)
-each round trains and transmits a cohort drawn by
-:meth:`FLEngine.cohort_schedule`; the other clients keep their estimates.
+accounting, the cohort schedule and the evaluation history, fault
+injection and crash-safe resume.  Under partial participation
+(``EngineSpec.participation`` < 1, the PR variants only) each round trains
+and transmits a cohort drawn by :meth:`FLEngine.cohort_schedule`; the
+other clients keep their estimates.
 
 Two execution paths, chosen as the reference chooses them (``mode``
-"auto" runs fused wherever :meth:`FLEngine.fused_supported` holds):
+"auto" runs fused wherever :meth:`FLEngine.fused_supported` holds and no
+wire audit is asked for):
 
 * **host** -- a Python loop over rounds whose work runs on the task's
   device.  An adaptive allocation recomputes its *exact* plan each round
   on the host from the round's KL statistic (``_kl_stats``, one
-  device-to-host copy a round).
+  device-to-host copy a round).  Functional channels run the step
+  functions with an explicit state carry; ``wire="audit"`` runs (and
+  channels without the step protocol) take the eager shell protocol
+  (``_shell_round``): every payload is serialized through
+  :mod:`repro_torch.wire` and decoded back, the decoded values drive the
+  round, and the session reconciles against the BitMeter.
 * **fused** -- the counterpart of the reference's one ``lax.scan``: the
   round's functions run on static device buffers (the carry: theta,
   theta_hat and the channel states; the shards; the round index, cohort
-  and base key), captured once per run signature as CUDA graphs on the
-  card and replayed every round; on the CPU the same functions run
-  eagerly in the same order.  Static plans replay one round graph, an
-  eval graph on eval rounds and a flush graph on sync rounds; their bits
-  are booked after the run from the Python floats the first round
-  records, with no device-to-host read before the end.  Adaptive
-  allocations run *bucketed* plans (``core.blocks``' bucket API): a stats
-  graph trains and selects the bucket on the device, the host reads the
-  bucket index (one 4-byte read a round, in place of ``lax.switch``) and
-  replays that bucket's graph, captured on its first selection; the
-  round's bits ride out in float32 device vectors.
+  and base key; under faults the round's fault masks), captured once per
+  run signature as CUDA graphs on the card and replayed every round; on
+  the CPU the same functions run eagerly in the same order.  Static plans
+  replay one round graph, an eval graph on eval rounds and a flush graph
+  on sync rounds; their bits are booked from the Python floats the first
+  round records.  Adaptive allocations run *bucketed* plans
+  (``core.blocks``' bucket API): a stats graph trains and selects the
+  bucket on the device, the host reads the bucket index (one 4-byte read
+  a round, in place of ``lax.switch``) and replays that bucket's graph,
+  captured on its first selection; the round's bits ride out in float32
+  device vectors.
 
-Not ported yet, and refused with ``NotImplementedError``: the wire audit,
-fault injection, and checkpoint/resume.
+Fault injection (DESIGN.md §8): ``run(..., faults=FaultPlan(...))``
+precomputes the whole fault trajectory next to the cohort schedule; both
+paths consume the same tables (the host loop as Python values, the fused
+path as device buffers its graphs read), so the same seed gives the
+identical faulted run in either mode.  Dropped / lost clients keep their
+error-feedback rows and ``theta_hat`` rows (``torch.where``), surviving
+contributions are renormalised through ``RoundContext.up_weight``, an
+all-fail round keeps the pre-round carry (compute-then-discard select),
+and corrupted deliveries book their wasted copies into the BitMeter's
+``retransmit_bits`` -- on the wire-audit path as real flipped frame copies
+that must fail their CRC.
+
+Crash-safe resume: ``checkpoint_dir=`` + ``checkpoint_every=`` write the
+full engine carry (model, per-client estimates, channel states, BitMeter,
+history and a config blob) through the atomic :mod:`repro_torch.checkpoint`
+writer, in the reference's layout, at the reference's round boundaries;
+``resume_from=`` restores it (the port's file or the reference's) and
+continues bit-identically.  The fused path saves between replays, and a
+resumed fused run starts its program's round counter at the saved round.
 """
 from __future__ import annotations
 
 import gc
+import json
+import os
 import time
 import weakref
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import checkpoint as ckpt
 from repro_torch import prng
 from repro_torch.core import mrc
 from repro_torch.core.bernoulli import bern_kl, clip01
@@ -53,12 +80,80 @@ from repro_torch.core.bitmeter import BitMeter
 from repro_torch.kernels import ops
 from .channels import BlockPlan, RoundContext, ServerUpdate, TAG_COHORT, TAG_TRAIN
 from .data import Dataset
+from .faults import FaultPlan, corrupt_copy, fault_report
 
 
 def _cohort_mean(ctx, x: torch.Tensor) -> torch.Tensor:
-    """Mean over the cohort axis, rounded as the reference's ``jnp.mean``
-    (fault-free rounds; the survivor-weighted form comes with faults)."""
-    return mrc.sample_mean(x)
+    """Mean over the cohort axis, renormalised over survivors under faults.
+
+    On fault-free rounds ``ctx.up_weight`` is None and this is the
+    reference's ``jnp.mean``, rounded as XLA rounds it (``mrc.sample_mean``).
+    Under injected faults the weights zero out dropped / straggling /
+    lost-uplink rows and the denominator is the survivor count (guarded
+    against the all-fail round, whose result the engine discards): the
+    reference's ``tensordot(w, x, axes=1) / den``, its rows added one after
+    another onto a zero accumulator as XLA's dot adds them.
+    """
+    w = getattr(ctx, "up_weight", None)
+    if w is None:
+        return mrc.sample_mean(x)
+    tot = w.sum()
+    den = torch.where(tot > 0.0, tot, torch.ones_like(tot))
+    acc = torch.zeros_like(x[0])
+    for i in range(x.shape[0]):
+        acc = acc + w[i] * x[i]
+    return acc / den
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of channel states (a tensor, or nested tuples
+    and lists of them; ``()`` for a stateless channel)."""
+    if isinstance(trees[0], (tuple, list)):
+        return type(trees[0])(_tree_map(fn, *sub) for sub in zip(*trees))
+    return fn(*trees)
+
+
+def _carry_rows(prev, new, keep: torch.Tensor):
+    """Keep per-client state rows only where ``keep`` (an (n,) bool tensor);
+    carry ``prev`` rows.  Leaves whose leading axis is the client axis are
+    row-masked, everything else (server-side state) takes the new value;
+    a missing ``prev`` (a shell channel before its first round) is zeros."""
+    if new is None:
+        return None
+    n = keep.shape[0]
+    if prev is None:
+        prev = _tree_map(torch.zeros_like, new)
+
+    def sel(p, q):
+        if isinstance(q, torch.Tensor) and q.dim() >= 1 and q.shape[0] == n:
+            return torch.where(keep.reshape((n,) + (1,) * (q.dim() - 1)), q, p)
+        return q
+
+    return _tree_map(sel, prev, new)
+
+
+def _faulted_round_bits(ul_bits, dl_bits, oh_full, rf, n_active, dl_denom):
+    """Scale one round's nominal bit totals by its fault view.
+
+    Returns ``(uplink, downlink, overhead, retransmit)`` bits.  Uplink
+    bills every *delivered* sender (stragglers included -- the traffic
+    happened); each corrupted copy re-bills one per-client payload into the
+    retransmit category; the downlink of an all-fail round never leaves
+    the server; CTRL side information reaches online clients only.  The
+    host loop and the fused path's booking run the same float arithmetic.
+    """
+    per_up = ul_bits / n_active
+    per_dn = dl_bits / dl_denom if dl_denom else 0.0
+    per_oh = oh_full / len(rf.online)
+    ul = per_up * float(rf.delivered_up.sum())
+    rt = per_up * float(rf.up_wasted.sum())
+    if rf.all_failed:
+        dl = 0.0
+    else:
+        dl = per_dn * float(rf.delivered_dn.sum())
+        rt += per_dn * float(rf.dn_wasted.sum())
+    oh = per_oh * float(rf.online.sum())
+    return ul, dl, oh, rt
 
 
 def _kl_stats(payload: torch.Tensor, priors: torch.Tensor, *,
@@ -238,40 +333,64 @@ class FLEngine:
 
     def run(self, shards: Dataset, theta0: Optional[torch.Tensor] = None, *,
             rounds: int, seed: int = 0, eval_every: int = 1, mode: str = "auto",
-            cohort_rng: str = "numpy", wire: Optional[str] = None, faults=None,
+            cohort_rng: str = "numpy", wire: Optional[str] = None,
+            faults: Optional[FaultPlan] = None,
             checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
             resume_from: Optional[str] = None) -> Dict[str, Any]:
         """Run the scheme.  ``mode``: "auto" (fused when eligible), "host",
         or "fused" (raises ``ValueError`` for a spec that needs the host
         control plane).
 
+        ``wire="audit"`` serializes every channel payload through the
+        :mod:`repro_torch.wire` bitstream each round (encode -> decode; the
+        decoded values drive the trajectory) and reconciles the BitMeter
+        against the stream; host path only.  The report lands in
+        ``out["wire"]`` and the stream in ``out["wire_session"]``.
+
+        ``faults=FaultPlan(...)`` injects the plan's deterministic fault
+        schedule (dropouts, stragglers, frame corruption); the event log and
+        summary land in ``out["faults"]``.  A plan that draws no fault for
+        this run leaves the trajectory bit-identical to ``faults=None``.
+
+        ``checkpoint_dir=`` (+ ``checkpoint_every=k``) saves the full engine
+        state every k rounds (and at the end); ``resume_from=`` (a
+        checkpoint file, or a directory to scan for the newest valid step)
+        restores it and continues bit-identically.
+
         Returns the reference's result dict (``history``, ``meter``,
         ``theta``, ``theta_hat``, ``final_acc``, ``max_acc``,
-        ``active_schedule``, ``mode``).  The host path adds
-        ``phase_seconds``: per round, host-clock seconds of each phase
-        (``train``, ``codec`` = uplink + aggregate + downlink, ``eval``; 0.0
-        where no eval ran), each ended by a device synchronise.  The fused
-        path under an adaptive allocation adds ``buckets``, the bucket index
-        of every round.
+        ``active_schedule``, ``mode``, and the keys above).  The host path
+        adds ``phase_seconds``: per round run, host-clock seconds of each
+        phase (``train``, ``codec`` = uplink + aggregate + downlink, ``eval``;
+        0.0 where no eval ran), each ended by a device synchronise.  The
+        fused path under an adaptive allocation adds ``buckets``, the bucket
+        index of every round it ran.
         """
-        if mode not in ("auto", "host", "fused"):
-            raise ValueError(mode)
-        if cohort_rng not in ("numpy", "jax"):
-            raise ValueError(cohort_rng)
-        for name, value in (("wire", wire), ("faults", faults),
-                            ("checkpoint_dir", checkpoint_dir),
-                            ("checkpoint_every", checkpoint_every),
-                            ("resume_from", resume_from)):
-            if value:
-                raise NotImplementedError(f"{name}= is not ported yet")
         task, spec = self.task, self.spec
-        fused_ok = self.fused_supported()
-        if mode == "fused" and not fused_ok:
+        if wire not in (None, "audit"):
+            raise ValueError(f"wire={wire!r} (expected None or 'audit')")
+        if wire and mode == "fused":
+            raise ValueError("wire audit runs on the host path; it cannot "
+                             "be combined with mode='fused'")
+        if faults is not None and not isinstance(faults, FaultPlan):
+            raise ValueError(f"faults={faults!r} (expected a FaultPlan)")
+        if checkpoint_every and not checkpoint_dir:
+            raise ValueError("checkpoint_every needs checkpoint_dir")
+        if checkpoint_every < 0:
+            raise ValueError(f"checkpoint_every={checkpoint_every} < 0")
+        if wire and (checkpoint_dir or resume_from):
+            raise ValueError("wire audit cannot checkpoint or resume (the "
+                             "session stream is not part of the saved carry)")
+        if (checkpoint_dir or resume_from) and not self._functional_channels():
             raise ValueError(
-                f"spec {spec.name!r} needs the host control plane "
-                "(non-functional channels, an allocation without the bucket "
-                "API, or a data-dependent plan combined with an EF flush)")
-
+                f"spec {spec.name!r} cannot checkpoint/resume: channels "
+                "without the pure-state protocol have no explicit carry")
+        # Stateful shells (error-feedback memories) must start fresh: a spec
+        # may be run more than once.
+        for chan in (spec.uplink, spec.downlink):
+            reset = getattr(chan, "reset", None)
+            if reset is not None:
+                reset()
         n = int(shards.y.shape[0])
         theta = task.init_theta() if theta0 is None else theta0
         d = int(theta.shape[0])
@@ -280,40 +399,220 @@ class FLEngine:
             spec.downlink, "broadcast_shareable", True))
         n_active = max(1, int(round(spec.participation * n)))
         schedule = self.cohort_schedule(rounds, n, n_active, seed, cohort_rng)
-        if fused_ok and mode != "host":
-            out = self._run_fused(shards, theta, theta_hat, meter, rounds=rounds,
-                                  seed=seed, eval_every=eval_every, schedule=schedule)
+
+        # The fault schedule, precomputed like the cohort schedule; ``views``
+        # stays None when the drawn schedule is fault-free, which keeps the
+        # run on the fault-free code paths.
+        fsched = views_all = views = None
+        if faults is not None:
+            fsched = faults.schedule(rounds, n)
+            dl_rec = getattr(spec.downlink, "downlink_recipients", "all")
+            views_all = fsched.run_views(schedule, dl_rec)
+            if any(v.faulty or v.all_failed for v in views_all):
+                views = views_all
+        if views is not None and not wire and not self._functional_channels():
+            raise ValueError(
+                f"spec {spec.name!r} cannot run under faults without the "
+                "pure-state channel protocol (state rows must be carried "
+                "explicitly) or a wire session")
+        if views is not None and wire:
+            for role, chan in (("uplink", spec.uplink), ("downlink", spec.downlink)):
+                if not (hasattr(chan, "export_state") and hasattr(chan, "import_state")):
+                    raise ValueError(
+                        f"spec {spec.name!r} cannot run faulted wire audit: "
+                        f"{role} channel lacks export_state/import_state")
+
+        if mode not in ("auto", "host", "fused"):
+            raise ValueError(mode)
+        fused_ok = self.fused_supported()
+        if mode == "fused" and not fused_ok:
+            raise ValueError(
+                f"spec {spec.name!r} needs the host control plane "
+                "(non-functional channels, an allocation without the bucket "
+                "API, or a data-dependent plan combined with an EF flush)")
+        fused = fused_ok and mode != "host" and not wire
+
+        cfg_blob = None
+        if checkpoint_dir or resume_from:
+            cfg_blob = self._config_blob(rounds=rounds, seed=seed, eval_every=eval_every,
+                                         cohort_rng=cohort_rng, n=n, d=d, faults=faults)
+        start_round, carry_in, history0 = 0, None, None
+        if resume_from:
+            start_round, theta, theta_hat, carry_in, history0 = self._load_resume(
+                resume_from, cfg_blob, meter, theta.device)
+
+        run_kw = dict(rounds=rounds, seed=seed, eval_every=eval_every, schedule=schedule,
+                      views=views, start_round=start_round, carry_in=carry_in,
+                      history=history0, checkpoint_dir=checkpoint_dir,
+                      checkpoint_every=checkpoint_every, cfg_blob=cfg_blob)
+        if fused:
+            out = self._run_fused(shards, theta, theta_hat, meter, **run_kw)
         else:
-            out = self._run_host(shards, theta, theta_hat, meter, rounds=rounds,
-                                 seed=seed, eval_every=eval_every, schedule=schedule)
+            session = None
+            if wire:
+                from repro_torch.wire import WireSession, scheme_wire_id
+                session = WireSession(scheme_id=scheme_wire_id(spec.name or "unnamed"))
+            out = self._run_host(shards, theta, theta_hat, meter, session=session,
+                                 fsched=fsched, **run_kw)
+            if session is not None:
+                out["wire"] = session.reconcile(meter)
+                out["wire_session"] = session
         out["active_schedule"] = schedule
+        out["mode"] = "fused" if fused else "host"
+        if faults is not None:
+            rt_by_round = [h.get("retransmit_bits", 0.0) for h in meter.history]
+            out["faults"] = fault_report(faults, views_all, rt_by_round)
         return out
+
+    # -- checkpoint / resume ------------------------------------------------
+
+    def _config_blob(self, *, rounds, seed, eval_every, cohort_rng, n, d,
+                     faults) -> np.ndarray:
+        """Run configuration as a uint8 JSON blob (a checkpoint leaf), the
+        reference's byte for byte.  Compared bytewise on resume: a
+        checkpoint only resumes the *same* run (spec, rounds, seed, fault
+        plan), because everything the engine recomputes from scratch --
+        cohort schedule, fault schedule, round keys -- must re-derive
+        identically for the continuation to be bit-exact."""
+        spec = self.spec
+        cfg = {
+            "kind": "fl-engine-checkpoint",
+            "format": 1,
+            "spec": spec.name,
+            "rounds": int(rounds),
+            "seed": int(seed),
+            "eval_every": int(eval_every),
+            "cohort_rng": cohort_rng,
+            "n": int(n),
+            "d": int(d),
+            "participation": float(spec.participation),
+            "sync_period": int(spec.sync_period),
+            "faults": None if faults is None else asdict(faults),
+        }
+        raw = json.dumps(cfg, sort_keys=True).encode("utf-8")
+        return np.frombuffer(raw, np.uint8).copy()
+
+    def _save_state(self, directory, next_round, theta, theta_hat, up_s, dn_s, meter,
+                    history, cfg_blob) -> None:
+        """Write the full engine carry as one atomic per-step checkpoint, in
+        the reference's tree layout (channel states as their tensors, or
+        ``()`` for a stateless channel)."""
+        mh = meter.history
+        host = lambda t: t.detach().cpu().numpy()  # noqa: E731
+        state = {
+            "config": cfg_blob,
+            "next_round": np.int64(next_round),
+            "theta": host(theta),
+            "theta_hat": host(theta_hat),
+            "up_state": _tree_map(host, up_s),
+            "dn_state": _tree_map(host, dn_s),
+            "meter": {
+                "uplink_bits": np.float64(meter.uplink_bits),
+                "downlink_bits": np.float64(meter.downlink_bits),
+                "retransmit_bits": np.float64(meter.retransmit_bits),
+                "rounds": np.int64(meter.rounds),
+                "hist_round": np.asarray([h["round"] for h in mh], np.int64),
+                "hist_up": np.asarray([h["uplink_bits"] for h in mh], np.float64),
+                "hist_dn": np.asarray([h["downlink_bits"] for h in mh], np.float64),
+                "hist_rt": np.asarray([h.get("retransmit_bits", 0.0) for h in mh],
+                                      np.float64),
+                "hist_cum": np.asarray([h["cum_bits"] for h in mh], np.float64),
+            },
+            "history": {
+                "round": np.asarray([h["round"] for h in history], np.int64),
+                "acc": np.asarray([h["acc"] for h in history], np.float64),
+                "cum_bits": np.asarray([h["cum_bits"] for h in history], np.float64),
+                "bpp": np.asarray([h["bpp_so_far"] for h in history], np.float64),
+            },
+        }
+        ckpt.save_step(directory, state, int(next_round))
+
+    def _load_resume(self, resume_from, cfg_blob, meter, device):
+        """Restore ``(start_round, theta, theta_hat, carry, history)``, the
+        tensors on ``device``.
+
+        ``resume_from`` is a checkpoint file, or a directory whose newest
+        *valid* step checkpoint is chosen (torn files are skipped with a
+        warning by :func:`repro_torch.checkpoint.latest`).  The saved config
+        blob must match this run's exactly.
+        """
+        if os.path.isdir(resume_from):
+            path, _ = ckpt.latest(resume_from)
+            if path is None:
+                raise ValueError(f"resume_from={resume_from!r}: no valid checkpoint found")
+        else:
+            path = resume_from
+        state, _ = ckpt.load(path)
+        if bytes(np.asarray(state["config"], np.uint8)) != bytes(np.asarray(cfg_blob, np.uint8)):
+            raise ValueError(
+                f"checkpoint {path} was saved by a different run configuration "
+                "(spec/rounds/seed/faults must be identical to resume)")
+        m = state["meter"]
+        meter.uplink_bits = float(m["uplink_bits"])
+        meter.downlink_bits = float(m["downlink_bits"])
+        meter.retransmit_bits = float(m["retransmit_bits"])
+        meter.rounds = int(m["rounds"])
+        meter.history = []
+        for r, u, dl, rt, cum in zip(m["hist_round"], m["hist_up"], m["hist_dn"],
+                                     m["hist_rt"], m["hist_cum"]):
+            entry = {"round": int(r), "uplink_bits": float(u),
+                     "downlink_bits": float(dl), "cum_bits": float(cum)}
+            if rt:  # key present only when nonzero, as add_round writes it
+                entry["retransmit_bits"] = float(rt)
+            meter.history.append(entry)
+        h = state["history"]
+        history0 = [{"round": int(r), "acc": float(a), "cum_bits": float(c),
+                     "bpp_so_far": float(b)}
+                    for r, a, c, b in zip(h["round"], h["acc"], h["cum_bits"], h["bpp"])]
+        dev = lambda a: torch.from_numpy(np.array(a)).to(device)  # noqa: E731
+        carry = (_tree_map(dev, state["up_state"]), _tree_map(dev, state["dn_state"]))
+        return (int(np.asarray(state["next_round"])), dev(state["theta"]),
+                dev(state["theta_hat"]), carry, history0)
 
     # -- host loop ---------------------------------------------------------
 
-    def _run_host(self, shards, theta, theta_hat, meter, *, rounds, seed,
-                  eval_every, schedule) -> Dict[str, Any]:
+    def _run_host(self, shards, theta, theta_hat, meter, *, rounds, seed, eval_every,
+                  schedule, session=None, views=None, fsched=None, start_round=0,
+                  carry_in=None, history=None, checkpoint_dir=None, checkpoint_every=0,
+                  cfg_blob=None) -> Dict[str, Any]:
         task, spec = self.task, self.spec
         alloc = spec.allocation
         n, d = meter.n_clients, meter.d
         n_active = schedule.shape[1]
         device = theta.device
-        up_s = spec.uplink.init_up_state(n, d, device)
-        dn_s = spec.downlink.init_down_state(n, d, device)
         base = prng.PRNGKey(seed, device=device)
-        history = []
+        history = list(history) if history else []
+        faulted = views is not None
+        dl_rec = getattr(spec.downlink, "downlink_recipients", "all")
+        dl_denom = n if dl_rec == "all" else n_active
+        if session is not None:
+            self._check_wire_support()
+        # Functional channels carry their state explicitly (fault masks
+        # applied between rounds); the wire audit and non-functional
+        # channels take the eager shell protocol.
+        staged = session is None and self._functional_channels()
+        up_s = dn_s = None
+        if staged:
+            if carry_in is not None:
+                up_s, dn_s = carry_in
+            else:
+                up_s = spec.uplink.init_up_state(n, d, device)
+                dn_s = spec.downlink.init_down_state(n, d, device)
         phase = {"train": [], "codec": [], "eval": []}
+        on_dev = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
 
         def sync():
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             return time.perf_counter()
 
-        for t in range(rounds):
+        for t in range(start_round, rounds):
             t0 = sync()
             kt = mrc.round_key(base, t)
             active = schedule[t]
-            ids = torch.as_tensor(active, device=device) if n_active < n else None
+            rf = views[t] if faulted else None
+            msgs = []  # this round's wire traffic (audit mode only)
+            ids = on_dev(active) if n_active < n else None
             payload, priors = self._train(kt, theta_hat, shards.x, shards.y, ids)
             t1 = sync()
 
@@ -329,17 +628,48 @@ class FLEngine:
                 size, n_blocks, seg_ids, overhead = alloc.plan(kl, d)
                 plan = BlockPlan(size=size, n_blocks=n_blocks, seg_ids=seg_ids,
                                  overhead_bits=overhead)
-            ctx = RoundContext(t=t, key=kt, n_clients=n, d=d, active=active,
-                               plan=plan)
-            theta, theta_hat, up_s, dn_s, update, ul_bits, dl_bits, oh = \
-                self._round_core(plan, theta, theta_hat, up_s, dn_s, payload,
-                                 priors, ctx)
-            if spec.sync_period and (t + 1) % spec.sync_period == 0:
-                theta, theta_hat, up_s, dn_s, b_up, b_dn = self._flush(
-                    theta, up_s, dn_s, update.lr, n, d)
-                ul_bits += b_up
-                dl_bits += b_dn
-            meter.add_round(ul_bits, dl_bits, overhead_bits=oh)
+                if session is not None:
+                    # The plan crosses the wire as one CTRL frame per client
+                    # (the meter books overhead_bits * n); the decoded plan --
+                    # not the host object -- drives the round.  Under faults
+                    # the CTRL link is protected signalling: never corrupted,
+                    # but dropped clients miss their copy.
+                    ctrl = self._encode_plan_msgs(plan, n)
+                    plan = self._decode_plan_msg(ctrl[0], d)
+                    msgs += [m for m in ctrl if not faulted or rf.online[m.sender]]
+
+            if staged:
+                ctx = RoundContext(t=t, key=kt, n_clients=n, d=d, active=active, plan=plan,
+                                   up_weight=on_dev(rf.up_weight) if faulted else None)
+                th, thh, us, ds, update, ul_bits, dl_bits, oh_full = self._round_core(
+                    plan, theta, theta_hat, up_s, dn_s, payload, priors, ctx)
+                if faulted:
+                    # Carried, not corrupted: dropped/lost rows keep their
+                    # pre-round EF state and theta_hat estimate; an all-fail
+                    # round discards the whole computed step.
+                    us = _carry_rows(up_s, us, on_dev(rf.delivered_up))
+                    thh = torch.where(on_dev(rf.delivered_dn)[:, None], thh, theta_hat)
+                    if rf.all_failed:
+                        th, thh, us, ds = theta, theta_hat, up_s, dn_s
+                    ul_r, dl_r, oh_r, rt_r = _faulted_round_bits(
+                        ul_bits, dl_bits, oh_full, rf, n_active, dl_denom)
+                else:
+                    ul_r, dl_r, oh_r, rt_r = ul_bits, dl_bits, oh_full, 0.0
+                theta, theta_hat, up_s, dn_s = th, thh, us, ds
+                # The EF sync is protected signalling: exempt from faults,
+                # booked unscaled.
+                if spec.sync_period and (t + 1) % spec.sync_period == 0:
+                    theta, theta_hat, up_s, dn_s, b_up, b_dn = self._flush(
+                        theta, up_s, dn_s, update.lr, n, d)
+                    ul_r += b_up
+                    dl_r += b_dn
+                meter.add_round(ul_r, dl_r, overhead_bits=oh_r, retransmit_bits=rt_r)
+            else:
+                theta, theta_hat = self._shell_round(
+                    t, kt, active, plan, payload, priors, theta, theta_hat, meter,
+                    session, msgs, rf, fsched, n, d, n_active, dl_denom)
+            if session is not None:
+                session.add(msgs, round=t)
             t2 = sync()
             t3 = t2
             if (t + 1) % eval_every == 0 or t == rounds - 1:
@@ -351,17 +681,219 @@ class FLEngine:
             phase["train"].append(t1 - t0)
             phase["codec"].append(t2 - t1)
             phase["eval"].append(t3 - t2)
+            if staged and checkpoint_dir and (
+                    (checkpoint_every and (t + 1) % checkpoint_every == 0) or t + 1 == rounds):
+                self._save_state(checkpoint_dir, t + 1, theta, theta_hat, up_s, dn_s, meter,
+                                 history, cfg_blob)
 
         out = self._result(history, meter, theta, theta_hat)
-        out.update(mode="host", phase_seconds=phase)
+        out["phase_seconds"] = phase
         return out
+
+    def _shell_round(self, t, kt, active, plan, payload, priors, theta, theta_hat, meter,
+                     session, msgs, rf, fsched, n, d, n_active, dl_denom):
+        """One eager shell-protocol round (wire audit / non-functional).
+
+        Appends this round's frames to ``msgs`` (mutated in place) and books
+        the meter.  ``rf`` is the round's fault view or None; a faulted
+        shell round always has a wire session (enforced in ``run``), injects
+        real corrupted frame copies, and books bits from the stream itself
+        so the session reconciles exactly.
+        """
+        spec = self.spec
+        device = theta.device
+        on_dev = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+        faulted = rf is not None
+        if faulted:
+            up_snap = spec.uplink.export_state()
+            dn_snap = spec.downlink.export_state()
+            n_wasted0 = len(session.wasted)
+        ctx = RoundContext(t=t, key=kt, n_clients=n, d=d, active=active, plan=plan,
+                           up_weight=on_dev(rf.up_weight) if faulted else None)
+
+        # ---- uplink -> aggregate -> downlink -------------------------------
+        if session is None:
+            up_out, ul_bits = spec.uplink.transmit(ctx, payload, priors)
+        else:
+            up_out, ul_bits, up_msgs = spec.uplink.transmit_wire(ctx, payload, priors)
+            up_out = spec.uplink.decode_up(ctx, up_msgs, priors)
+            if faulted:
+                spec.uplink.import_state(_carry_rows(
+                    up_snap, spec.uplink.export_state(), on_dev(rf.delivered_up)))
+                msgs += self._wire_deliver(
+                    session, fsched, rf, t, up_msgs, owner="sender", link=0,
+                    sched=rf.senders, ok=rf.delivered_up, wasted=rf.up_wasted)
+            else:
+                msgs += up_msgs
+        update = spec.aggregator(ctx, theta, up_out)
+        if session is None:
+            theta, theta_hat, dl_bits = spec.downlink.distribute(ctx, update, theta, theta_hat)
+        elif faulted and rf.all_failed:
+            # Compute-then-discard: the server aborts before broadcasting,
+            # every client (and the channel state) keeps its pre-round view;
+            # only the uplink traffic that did happen is billed.
+            spec.uplink.import_state(up_snap)
+            spec.downlink.import_state(dn_snap)
+            dl_bits = 0.0
+        else:
+            from .channels import WireEnv
+            _, dn_msgs = spec.downlink.distribute_wire(ctx, update, theta, theta_hat, up_msgs)
+            env = WireEnv(uplink=spec.uplink, aggregator=spec.aggregator, priors=priors,
+                          up_msgs=up_msgs, update=update)
+            new_th, new_hat, dl_bits = spec.downlink.decode_down(ctx, dn_msgs, theta,
+                                                                 theta_hat, env)
+            if faulted:
+                theta = new_th
+                theta_hat = torch.where(on_dev(rf.delivered_dn)[:, None], new_hat, theta_hat)
+                msgs += self._wire_deliver(
+                    session, fsched, rf, t, dn_msgs, owner="recipient", link=1,
+                    sched=rf.nominal_recv & rf.online, ok=rf.delivered_dn,
+                    wasted=rf.dn_wasted)
+            else:
+                theta, theta_hat = new_th, new_hat
+                msgs += dn_msgs
+
+        # ---- periodic EF synchronisation (CSER / LIEC) ---------------------
+        if spec.sync_period and (t + 1) % spec.sync_period == 0:
+            if session is None:
+                r_up, b_up = spec.uplink.flush(n, d)
+            else:
+                r_up, b_up, fl_msgs = spec.uplink.flush_wire(n, d)
+                if fl_msgs:
+                    r_up = spec.uplink.decode_flush_up(fl_msgs, n, d).to(device)
+                msgs += fl_msgs
+            r_dn, b_dn = spec.downlink.flush(n, d)
+            # flush at the aggregator's step size (update.lr), so a hand-built
+            # spec cannot desync the reset from the rounds
+            theta = theta - update.lr * (r_up + r_dn)
+            theta_hat = theta[None].repeat(n, 1)
+            ul_bits += b_up
+            dl_bits += b_dn
+            if session is not None and b_dn:
+                # The downlink flush re-broadcasts the synced model: n dense
+                # frames of the post-flush theta, n * d * 32 bits == every
+                # stateful downlink's booked flush cost.  The decoded
+                # broadcast drives the trajectory.
+                fd_msgs, theta = self._flush_down_msgs(theta, n, d, b_dn)
+                theta_hat = theta[None].repeat(n, 1)
+                msgs += fd_msgs
+
+        if faulted:
+            # Book straight from the frames that actually hit the stream
+            # (CTRL overhead rides the uplink direction), so the session
+            # reconcile is exact by construction.
+            from repro_torch.wire import DOWNLINK_DIRS, UPLINK_DIRS
+            ul_r = float(sum(m.payload_bits for m in msgs if m.direction in UPLINK_DIRS))
+            dl_r = float(sum(m.payload_bits for m in msgs if m.direction in DOWNLINK_DIRS))
+            rt_r = float(sum(wa.payload_bits for wa in session.wasted[n_wasted0:]))
+            meter.add_round(ul_r, dl_r, retransmit_bits=rt_r)
+        else:
+            overhead_bits = plan.overhead_bits * n if plan is not None else 0.0
+            meter.add_round(ul_bits, dl_bits, overhead_bits=overhead_bits)
+        return theta, theta_hat
+
+    def _wire_deliver(self, session, fsched, rf, t, msgs, *, owner, link, sched, ok, wasted):
+        """Route one direction's frames through the faulty link.
+
+        For every scheduled frame, materialize each corrupted copy the fault
+        schedule drew (flip the scheduled bit, *prove* the CRC rejects it,
+        book it as a wasted attempt), then deliver the clean frame iff the
+        retry budget survived.  Returns the delivered frames.
+        """
+        from repro_torch.wire import Message, WireError
+        delivered = []
+        for m in msgs:
+            cid = getattr(m, owner)
+            if not sched[cid]:
+                continue
+            for a in range(int(wasted[cid])):
+                stamped = Message(direction=m.direction, sender=m.sender,
+                                  recipient=m.recipient, payload=m.payload,
+                                  payload_bits=m.payload_bits, round=t,
+                                  scheme_id=session.scheme_id)
+                raw = stamped.to_bytes()
+                bit = fsched.flip_bit(t, cid, link, a, 8 * len(raw))
+                try:
+                    Message.from_bytes(corrupt_copy(raw, bit))
+                except WireError:
+                    pass
+                else:
+                    raise AssertionError(
+                        f"corrupted frame copy (round {t}, client {cid}, bit {bit}) "
+                        "parsed cleanly: the CRC failed to catch the flip")
+                session.add_wasted(stamped, round=t, attempt=a, flipped_bit=bit)
+            if ok[cid]:
+                delivered.append(m)
+        return delivered
+
+    # -- wire-audit helpers ------------------------------------------------
+
+    def _check_wire_support(self) -> None:
+        spec = self.spec
+        missing = [a for a in ("transmit_wire", "decode_up") if not hasattr(spec.uplink, a)]
+        missing += [a for a in ("distribute_wire", "decode_down")
+                    if not hasattr(spec.downlink, a)]
+        if spec.allocation is not None and not all(
+                hasattr(spec.allocation, a) for a in ("encode_plan", "decode_plan")):
+            missing.append("allocation.encode_plan/decode_plan")
+        if missing:
+            raise ValueError(f"spec {spec.name!r} cannot be wire-audited: missing {missing}")
+        # Fail before any round work: a non-power-of-two n_is books
+        # fractional bits per index and would only surface as a
+        # WireCapacityError from codecs.index_width mid-run.
+        from repro_torch.wire.codecs import WireCapacityError, index_width
+        for role, chan in (("uplink", spec.uplink), ("downlink", spec.downlink)):
+            n_is = getattr(chan, "n_is", None)
+            if n_is is None:
+                continue
+            try:
+                index_width(n_is)
+            except WireCapacityError as e:
+                raise ValueError(
+                    f"spec {spec.name!r} cannot be wire-audited: {role} channel "
+                    f"{type(chan).__name__} has n_is={n_is}, which books fractional "
+                    "bits per MRC index; wire codecs need a power of two") from e
+
+    def _encode_plan_msgs(self, plan, n):
+        from repro_torch.wire import DIR_CTRL, SERVER, BitWriter, Message
+        w = BitWriter()
+        self.spec.allocation.encode_plan(plan, w)
+        payload, nbits = w.getvalue(), w.bits_written
+        return [Message(direction=DIR_CTRL, sender=cid, recipient=SERVER, payload=payload,
+                        payload_bits=nbits) for cid in range(n)]
+
+    def _decode_plan_msg(self, msg, d):
+        from repro_torch.wire import BitReader
+        r = BitReader(msg.payload, msg.payload_bits)
+        plan = self.spec.allocation.decode_plan(r, d)
+        r.expect_exhausted()
+        return plan
+
+    def _flush_down_msgs(self, theta, n, d, b_dn):
+        from repro_torch.wire import DIR_FLUSH_DOWN, SERVER, BitReader, BitWriter, Message
+        from repro_torch.wire import codecs as wcodecs
+        if b_dn != n * d * 32:
+            raise ValueError(
+                f"downlink flush books {b_dn} bits; the wire layer only knows the "
+                f"dense re-broadcast protocol ({n * d * 32} bits)")
+        w = BitWriter()
+        wcodecs.put_dense(w, theta.detach().cpu().numpy())
+        payload, nbits = w.getvalue(), w.bits_written
+        msgs = [Message(direction=DIR_FLUSH_DOWN, sender=SERVER, recipient=cid,
+                        payload=payload, payload_bits=nbits) for cid in range(n)]
+        r = BitReader(msgs[0].payload, msgs[0].payload_bits)
+        theta = torch.as_tensor(wcodecs.get_dense(r, d), device=theta.device)
+        r.expect_exhausted()
+        return msgs, theta
 
     # -- fused path --------------------------------------------------------
 
-    def _run_fused(self, shards, theta, theta_hat, meter, *, rounds, seed,
-                   eval_every, schedule) -> Dict[str, Any]:
+    def _run_fused(self, shards, theta, theta_hat, meter, *, rounds, seed, eval_every,
+                   schedule, views=None, start_round=0, carry_in=None, history=None,
+                   checkpoint_dir=None, checkpoint_every=0, cfg_blob=None) -> Dict[str, Any]:
         n, d = meter.n_clients, meter.d
         n_active = schedule.shape[1]
+        faulted = views is not None
         eval_mask = np.zeros(rounds, bool)
         eval_mask[eval_every - 1::eval_every] = True
         if rounds:
@@ -369,20 +901,22 @@ class FLEngine:
         flush_mask = np.zeros(rounds, bool)
         if self.spec.sync_period:
             flush_mask[self.spec.sync_period - 1::self.spec.sync_period] = True
-        # Seed, cohort schedule, masks and the data ride in as buffer
-        # contents; only a shape, dtype or device change builds a new program.
-        sig = (rounds, n, d, n_active, tuple(shards.x.shape), str(shards.x.dtype),
+        # Seed, cohort schedule, masks, fault tables and the data ride in as
+        # buffer contents; only a shape, dtype or device change, or being
+        # faulted, builds a new program.
+        sig = (rounds, n, d, n_active, faulted, tuple(shards.x.shape), str(shards.x.dtype),
                tuple(shards.y.shape), str(shards.y.dtype), str(theta.dtype),
                str(theta.device))
         prog = self._fused_programs.get(sig)
         if prog is None:
             prog = self._fused_programs[sig] = _FusedProgram(
                 self, rounds=rounds, n=n, d=d, n_active=n_active, shards=shards,
-                theta=theta)
-        out = prog.run(shards, theta, theta_hat, meter, seed=seed, schedule=schedule,
-                       eval_mask=eval_mask, flush_mask=flush_mask)
-        out["mode"] = "fused"
-        return out
+                theta=theta, faulted=faulted)
+        return prog.run(shards, theta, theta_hat, meter, seed=seed, schedule=schedule,
+                        eval_mask=eval_mask, flush_mask=flush_mask, views=views,
+                        start_round=start_round, carry_in=carry_in, history=history,
+                        checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+                        cfg_blob=cfg_blob)
 
     @staticmethod
     def _result(history, meter, theta, theta_hat) -> Dict[str, Any]:
@@ -417,16 +951,25 @@ class _FusedProgram:
     library loads and lazy initialisations happen outside the capture.  On
     the CPU every call runs the function eagerly, in the same order.  A
     capture that fails raises: the card never falls back to the host loop.
+
+    A faulted program's rounds also read the round's fault masks (the
+    survivor weights, the uplink keep and downlink receive rows, the
+    not-all-failed flag), copied from the run's tables into static buffers
+    before each replay; the carry and the all-fail select are
+    ``torch.where`` inside the graph.  The tables' contents are per-run
+    data, so a new fault plan replays the captured graphs.
     """
 
-    def __init__(self, engine: FLEngine, *, rounds, n, d, n_active, shards, theta):
+    def __init__(self, engine: FLEngine, *, rounds, n, d, n_active, shards, theta,
+                 faulted=False):
         spec = engine.spec
         dev = theta.device
         # A weak reference: the engine owns its programs, and a cycle would
         # keep a dropped engine's graphs alive until the collector runs.
         self.engine = weakref.proxy(engine)
-        self.rounds, self.n, self.d = rounds, n, d
+        self.rounds, self.n, self.d, self.n_active = rounds, n, d, n_active
         self.full = n_active == n
+        self.faulted = faulted
         self.on_card = dev.type == "cuda"
         alloc = self.alloc = spec.allocation
         self.adaptive = alloc is not None and not getattr(alloc, "static_plan", False)
@@ -446,14 +989,22 @@ class _FusedProgram:
         self.active = torch.zeros(n_active, dtype=i64, device=dev)
         self.x = torch.empty_like(shards.x, device=dev)
         self.y = torch.empty_like(shards.y, device=dev)
+        if faulted:
+            # The run's fault tables, and the round's rows the graphs read.
+            self.tables = {"w": torch.zeros((rounds, n_active), dtype=f32, device=dev),
+                           "keep_up": torch.zeros((rounds, n), dtype=torch.bool, device=dev),
+                           "recv": torch.zeros((rounds, n), dtype=torch.bool, device=dev),
+                           "ok": torch.zeros(rounds, dtype=torch.bool, device=dev)}
+            self.masks = {k: torch.empty_like(v[0]) for k, v in self.tables.items()}
         # The carry.
         self.theta = torch.empty_like(theta)
         self.theta_hat = torch.empty((n, d), dtype=theta.dtype, device=dev)
         self.up_s = spec.uplink.init_up_state(n, d, dev)
         self.dn_s = spec.downlink.init_down_state(n, d, dev)
-        # Outputs read once at the end: accuracy at eval rounds and, under
-        # an adaptive allocation, the round's uplink, downlink and overhead
-        # bits; the stats graph's results, read by the bucket graphs.
+        # Outputs read at the checkpoint boundaries and the end: accuracy at
+        # eval rounds and, under an adaptive allocation, the round's uplink,
+        # downlink and overhead bits; the stats graph's results, read by the
+        # bucket graphs.
         self.accs = torch.zeros(rounds, dtype=f32, device=dev)
         self.bits = torch.zeros((3, rounds), dtype=f32, device=dev)
         if self.adaptive:
@@ -472,13 +1023,24 @@ class _FusedProgram:
     def _key_and_ctx(self, plan):
         kt = mrc.round_key(self.base, self.t)
         return kt, RoundContext(t=self.t, key=kt, n_clients=self.n, d=self.d,
-                                active=self.active, plan=plan)
+                                active=self.active, plan=plan,
+                                up_weight=self.masks["w"] if self.faulted else None)
 
     def _store(self, theta, theta_hat, up_s, dn_s):
-        self.theta.copy_(theta)
-        self.theta_hat.copy_(theta_hat)
-        _copy_tree_(self.up_s, up_s)
-        _copy_tree_(self.dn_s, dn_s)
+        """Write the round's carry back, under faults after the same masking
+        as the host loop: theta_hat rows that missed the downlink keep the
+        pre-round value, EF rows of undelivered uplinks are carried, and the
+        whole step is discarded on an all-fail round."""
+        if self.faulted:
+            m = self.masks
+            theta_hat = torch.where(m["recv"][:, None], theta_hat, self.theta_hat)
+            up_s = _carry_rows(self.up_s, up_s, m["keep_up"])
+            theta, theta_hat, up_s, dn_s = _tree_map(
+                lambda new, old: torch.where(m["ok"], new, old),
+                (theta, theta_hat, up_s, dn_s),
+                (self.theta, self.theta_hat, self.up_s, self.dn_s))
+        _copy_tree_((self.theta, self.theta_hat, self.up_s, self.dn_s),
+                    (theta, theta_hat, up_s, dn_s))
 
     def _round(self):
         """Static plan: train, uplink, aggregate, downlink."""
@@ -492,10 +1054,11 @@ class _FusedProgram:
         self.booked.setdefault("round", (ul, dl, oh, update.lr))
 
     def _sync(self):
-        """The periodic EF flush, at the step size the round recorded."""
-        theta, theta_hat, up_s, dn_s, b_up, b_dn = self.engine._flush(
+        """The periodic EF flush, at the step size the round recorded.  It is
+        protected signalling, never faulted."""
+        *carry, b_up, b_dn = self.engine._flush(
             self.theta, self.up_s, self.dn_s, self.booked["round"][3], self.n, self.d)
-        self._store(theta, theta_hat, up_s, dn_s)
+        _copy_tree_((self.theta, self.theta_hat, self.up_s, self.dn_s), carry)
         self.booked.setdefault("flush", (b_up, b_dn))
 
     def _eval(self):
@@ -567,22 +1130,89 @@ class _FusedProgram:
             self.pool = graph.pool()
         self.graphs[name] = graph
 
+    def _book(self, meter, s, e, eval_mask, flush_mask, views, history):
+        """Book rounds [s, e) into the meter and the history: static plans
+        from the Python floats the first round recorded, adaptive ones from
+        the device bit vectors (read here); under faults through the host
+        loop's ``_faulted_round_bits``."""
+        n, n_active = self.n, self.n_active
+        dl_rec = getattr(self.engine.spec.downlink, "downlink_recipients", "all")
+        dl_denom = n if dl_rec == "all" else n_active
+        seg_eval = eval_mask[s:e]
+        accs = self.accs[s:e].cpu().numpy()
+        if self.adaptive:
+            ul, dl, oh = self.bits[:, s:e].cpu().numpy().astype(np.float64)
+            # Exact while every per-round total stays below 2**24 (integers
+            # times log2 of a pow2 n_is in float32), as the reference guards.
+            if max((float(np.max(np.abs(v))) if v.size else 0.0) for v in (ul, dl, oh)) \
+                    >= 2.0 ** 24:
+                raise OverflowError(
+                    "per-round bits exceed the float32 integer-exact range (2**24); "
+                    "run mode='host' for exact accounting at this scale")
+            if views is not None:
+                rows = [_faulted_round_bits(float(ul[i]), float(dl[i]), float(oh[i]),
+                                            views[s + i], n_active, dl_denom)
+                        for i in range(e - s)]
+                snaps = meter.book_run([r[0] for r in rows], [r[1] for r in rows],
+                                       overhead_bits=[r[2] for r in rows],
+                                       retransmit_bits=[r[3] for r in rows],
+                                       snapshot_mask=seg_eval)
+            else:
+                snaps = meter.book_run(ul, dl, overhead_bits=oh, snapshot_mask=seg_eval)
+        else:
+            ul, dl, oh, _ = self.booked["round"]
+            fl_up, fl_dn = self.booked.get("flush", (0.0, 0.0))
+            uls, dls, ohs, rts = [], [], [], []
+            for t in range(s, e):
+                if views is not None:
+                    u_, d_, o_, r_ = _faulted_round_bits(ul, dl, oh, views[t], n_active,
+                                                         dl_denom)
+                else:
+                    u_, d_, o_, r_ = ul, dl, oh, 0.0
+                uls.append(u_ + (fl_up if flush_mask[t] else 0.0))  # flush: unscaled
+                dls.append(d_ + (fl_dn if flush_mask[t] else 0.0))
+                ohs.append(o_)
+                rts.append(r_)
+            snaps = meter.book_run(uls, dls, overhead_bits=ohs, retransmit_bits=rts,
+                                   snapshot_mask=seg_eval)
+        history += [{"round": s + int(i) + 1, "acc": float(accs[i]), "cum_bits": cum_bits,
+                     "bpp_so_far": bpp}
+                    for i, (cum_bits, bpp) in zip(np.nonzero(seg_eval)[0], snaps)]
+
     def run(self, shards, theta, theta_hat, meter, *, seed, schedule, eval_mask,
-            flush_mask) -> Dict[str, Any]:
+            flush_mask, views=None, start_round=0, carry_in=None, history=None,
+            checkpoint_dir=None, checkpoint_every=0, cfg_blob=None) -> Dict[str, Any]:
         spec, n, d = self.engine.spec, self.n, self.d
         dev = self.theta.device
-        self.x.copy_(shards.x)
-        self.y.copy_(shards.y)
-        self.theta.copy_(theta)
-        self.theta_hat.copy_(theta_hat)
-        _copy_tree_(self.up_s, spec.uplink.init_up_state(n, d, dev))
-        _copy_tree_(self.dn_s, spec.downlink.init_down_state(n, d, dev))
+        history = list(history) if history else []
+        if carry_in is None:
+            carry_in = (spec.uplink.init_up_state(n, d, dev),
+                        spec.downlink.init_down_state(n, d, dev))
+        _copy_tree_((self.x, self.y, self.theta, self.theta_hat, self.up_s, self.dn_s),
+                    (shards.x, shards.y, theta, theta_hat, *carry_in))
         self.base.copy_(prng.PRNGKey(seed, device=dev))
         self.sched.copy_(torch.as_tensor(schedule, dtype=torch.int64))
+        if self.faulted:
+            host = {"w": np.stack([v.up_weight for v in views]),
+                    "keep_up": np.stack([v.delivered_up for v in views]),
+                    "recv": np.stack([v.delivered_dn for v in views]),
+                    "ok": np.asarray([not v.all_failed for v in views])}
+            for k, table in self.tables.items():
+                table.copy_(torch.as_tensor(host[k]))
+        # Checkpoints fall between replays, at the reference's boundaries.
+        bounds = set()
+        if checkpoint_dir and checkpoint_every:
+            first = ((start_round // checkpoint_every) + 1) * checkpoint_every
+            bounds = set(range(first, self.rounds, checkpoint_every))
+        cuts = bounds | {self.rounds}
         buckets = []
-        for t in range(self.rounds):
+        s = start_round
+        for t in range(start_round, self.rounds):
             self.t.fill_(t)
             self.active.copy_(self.sched[t])
+            if self.faulted:
+                for k, mask in self.masks.items():
+                    mask.copy_(self.tables[k][t])
             if self.adaptive:
                 self._play("stats", self._stats)
                 b = int(self.bidx)    # the round's one device-to-host read
@@ -594,31 +1224,13 @@ class _FusedProgram:
                     self._play("flush", self._sync)
             if eval_mask[t]:
                 self._play("eval", self._eval)
-        accs = self.accs.cpu().numpy()
-        if self.adaptive:
-            ul, dl, oh = self.bits.cpu().numpy().astype(np.float64)
-            # Exact while every per-round total stays below 2**24 (integers
-            # times log2 of a pow2 n_is in float32), as the reference guards.
-            if max((float(np.max(np.abs(v))) if v.size else 0.0) for v in (ul, dl, oh)) \
-                    >= 2.0 ** 24:
-                raise OverflowError(
-                    "per-round bits exceed the float32 integer-exact range (2**24); "
-                    "run mode='host' for exact accounting at this scale")
-            snaps = meter.book_run(ul, dl, overhead_bits=oh, snapshot_mask=eval_mask)
-        elif self.rounds:
-            ul, dl, oh, _ = self.booked["round"]
-            fl_up, fl_dn = self.booked.get("flush", (0.0, 0.0))
-            snaps = meter.book_run(
-                [ul + (fl_up if flush_mask[t] else 0.0) for t in range(self.rounds)],
-                [dl + (fl_dn if flush_mask[t] else 0.0) for t in range(self.rounds)],
-                overhead_bits=oh, snapshot_mask=eval_mask)
-        else:
-            snaps = []
-        history = [{"round": int(t) + 1, "acc": float(accs[t]), "cum_bits": cum_bits,
-                    "bpp_so_far": bpp}
-                   for t, (cum_bits, bpp) in zip(np.nonzero(eval_mask)[0], snaps)]
-        out = self.engine._result(history, meter, self.theta.clone(),
-                                  self.theta_hat.clone())
+            if t + 1 in cuts:
+                self._book(meter, s, t + 1, eval_mask, flush_mask, views, history)
+                s = t + 1
+                if checkpoint_dir:
+                    self.engine._save_state(checkpoint_dir, s, self.theta, self.theta_hat,
+                                            self.up_s, self.dn_s, meter, history, cfg_blob)
+        out = self.engine._result(history, meter, self.theta.clone(), self.theta_hat.clone())
         if self.adaptive:
             out["buckets"] = buckets
         return out

@@ -7,8 +7,9 @@ BiCompFL-GR-CFL and the seven conventional-FL baselines.  The reference's
 ``pallas_logw`` and ``segment_logw_pallas`` switches are gone: on the card
 the encoders always go through the CUDA kernels (the fused encoders
 ``kernels.ops.mrc_fixed_encode`` and ``kernels.ops.segment_mrc_encode``,
-the codecs' defaults).  The reference's ``fault_matrix`` and
-``wire_scheme_ids`` come with the wire and fault slice.
+the codecs' defaults).  ``wire_scheme_ids`` (the frame-header scheme id
+of every scheme) and ``fault_matrix`` (one scheme per uplink family, for
+fault-injection sweeps) are the reference's.
 """
 from __future__ import annotations
 
@@ -193,3 +194,54 @@ def all_schemes(*, n: int, d: int, n_is: int = 16, block: int = 64,
                     lambda s=s: baseline_spec(s, n=n, d=d, server_lr=server_lr,
                                               reset_period=reset_period)))
     return out
+
+
+def wire_scheme_ids(*, n: int = 4, d: int = 64) -> Dict[str, int]:
+    """Frame-header scheme ids for the full registry matrix.
+
+    The engine stamps ``scheme_wire_id(spec.name)`` into every message of a
+    wire-audited run; this enumerates the id of each registry scheme and
+    fails loudly if two distinct spec names ever hash to the same 16-bit id.
+    """
+    from repro_torch.wire import scheme_wire_id
+    ids: Dict[str, int] = {}
+    by_id: Dict[int, str] = {}
+    for _, _, factory in all_schemes(n=n, d=d, include_adaptive=True):
+        name = factory().name
+        wid = scheme_wire_id(name)
+        if by_id.get(wid, name) != name:
+            raise ValueError(f"wire scheme-id collision: {name!r} and {by_id[wid]!r} "
+                             f"both hash to {wid:#06x}")
+        by_id[wid] = name
+        ids[name] = wid
+    return ids
+
+
+def fault_matrix(*, n: int, d: int, n_is: int = 16, block: int = 64,
+                 n_dl: int = None, reset_period: int = 2):
+    """One scheme per uplink channel family, for fault-injection sweeps.
+
+    The fault machinery's degradation paths split by channel *family*, not
+    by scheme, so each family is covered once:
+
+    * ``bicompfl-pr``  -- MRC fixed-block uplink + client-specific
+      (``downlink_recipients="active"``) MRC private downlink;
+    * ``bicompfl-cfl`` -- quantized-MRC delta uplink, broadcast downlink;
+    * ``doublesqueeze`` -- sign compression with error feedback on both
+      links (EF rows must be carried for dropped clients);
+    * ``m3``           -- top-k EF uplink;
+    * ``fedavg``       -- dense float uplink, the no-compression control.
+
+    Same ``(name, task_kind, factory)`` triples as :func:`all_schemes`.
+    """
+    ndl = n if n_dl is None else n_dl
+    return [
+        ("bicompfl-pr", "mask",
+         lambda: bicompfl_spec("PR", allocation=FixedAllocation(block), n_is=n_is, n_dl=ndl)),
+        ("bicompfl-cfl", "delta", lambda: cfl_spec(n_is=n_is, block_size=16)),
+        ("doublesqueeze", "delta",
+         lambda: baseline_spec("doublesqueeze", n=n, d=d, reset_period=reset_period)),
+        ("m3", "delta", lambda: baseline_spec("m3", n=n, d=d, reset_period=reset_period)),
+        ("fedavg", "delta",
+         lambda: baseline_spec("fedavg", n=n, d=d, reset_period=reset_period)),
+    ]

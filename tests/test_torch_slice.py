@@ -33,6 +33,7 @@ from repro_torch.core.blocks import (AdaptiveAllocation as TAdaptive,
 from repro_torch.fl import channels as tch
 from repro_torch.fl.data import make_synthetic as t_make_synthetic, partition_iid as t_partition
 from repro_torch.fl.engine import FLEngine as TEngine, MeanModelAggregator as TMean
+from repro_torch.fl.faults import FaultPlan
 from repro_torch.fl.nets import flatten_weights, make_mlp as t_make_mlp
 from repro_torch.fl.registry import bicompfl_spec as t_spec
 
@@ -238,7 +239,7 @@ def test_engine_run_matches_reference(ref):
         assert abs(jh["acc"] - th["acc"]) <= ACC_BAND, (jh, th)
 
 
-def test_registry_and_engine_refuse_what_is_not_ported(ref):
+def test_registry_and_engine_refuse_what_is_not_ported(ref, tmp_path):
     for variant in ("PR", "GR-Reconst", "PR-SplitDL"):       # ported since
         assert t_spec(variant, allocation=TFixed(BLOCK)).name == f"BiCompFL-{variant}"
     for alloc in (TAdaptive(n_is=N_IS), TAdaptiveAvg(n_is=N_IS)):   # ported since
@@ -249,10 +250,17 @@ def test_registry_and_engine_refuse_what_is_not_ported(ref):
         t_spec("GR", allocation=object())
     eng = TEngine(_port_task(ref), t_spec("GR", allocation=TFixed(BLOCK), n_is=N_IS))
     shards = _port_shards(ref)
-    for kw in ({"wire": "audit"}, {"faults": object()},
-               {"checkpoint_dir": "ckpt"}, {"resume_from": "ckpt"}):
-        with pytest.raises(NotImplementedError):
-            eng.run(shards, rounds=1, **kw)
+    # The wire audit, faults and checkpoint/resume are ported since: they run,
+    # and refuse bad arguments as the reference does.
+    assert eng.run(shards, rounds=1, wire="audit")["wire"]["uplink_err_bits"] == 0.0
+    with pytest.raises(ValueError, match="expected a FaultPlan"):
+        eng.run(shards, rounds=1, faults=object())
+    assert eng.run(shards, rounds=1, faults=FaultPlan(seed=1))["faults"]["events"] == []
+    saved = eng.run(shards, rounds=1, checkpoint_dir=str(tmp_path))
+    assert eng.run(shards, rounds=1, resume_from=str(tmp_path))["meter"] == saved["meter"]
+    (tmp_path / "empty").mkdir()
+    with pytest.raises(ValueError, match="no valid checkpoint"):
+        eng.run(shards, rounds=1, resume_from=str(tmp_path / "empty"))
     assert eng.run(shards, rounds=1, mode="fused")["mode"] == "fused"   # ported since
     with pytest.raises(ValueError):
         eng.run(shards, rounds=1, mode="scan")
