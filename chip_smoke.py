@@ -84,9 +84,10 @@ Phases (each one fails the run with a non-zero exit; nothing is swallowed):
 8. prefill, bf16, full width and depth: ``transformer.prefill_step`` on
    (2, 4096) seeded tokens for ``qwen3-1.7b`` (28 layers) and
    ``rwkv6-1.6b`` (24 layers), counts set to 0 just before and read just
-   after (28 flash-attention and 24 RWKV launches); prefill time on the
-   host clock after a warm-up, and the kernels' share of the device time
-   from ``torch.profiler``;
+   after (one launch per layer of the kernel's mixer: 28 flash-attention
+   and 24 RWKV launches); prefill time on the host clock after a warm-up,
+   the peak device memory, and the kernels' share of the device time from
+   ``torch.profiler``;
 9. the same models in f32 at full depth: ``prefill_step``'s last logits on
    a (2, 256) prompt against 256 teacher-forced ``serve_step``s (the kernel
    against the decode path's einsum or per-token recurrence);
@@ -128,7 +129,20 @@ Phases (each one fails the run with a non-zero exit; nothing is swallowed):
    the profiler), and the faulted and clean fused steady rounds; then a run
    killed after round 2 (later checkpoints deleted) and resumed, on PR and
    doublesqueeze, host and fused, clean and faulted, bit-identical to the
-   uninterrupted run, with the checkpoint files' bytes and save times.
+   uninterrupted run, with the checkpoint files' bytes and save times;
+13. (run after phase 10) the MoE and Jamba configs at full width, cut in
+   depth, bf16, seeded random weights: ``jamba-v0.1-52b``'s one unit of 8
+   layers (7 Mamba and 1 attention; 4 MoE FFNs of 16 experts, top-2, and 4
+   dense) and ``kimi-k2-1t-a32b``'s dense prefix layer and one MoE layer
+   (384 experts, top-8, a shared expert): phase 8's prefill (1 and 2
+   flash-attention launches; the share of MoE assignments dropped at
+   capacity; Jamba profiled at (2, 512)), the first MoE layer's routing
+   (``moe.route``) on the card against the CPU on the same f32 inputs and
+   router (expert choices equal outside near ties, queue places and drops
+   equal in every group without a flip), phase 10's serving on the same
+   weights, and Jamba's unit in f32, prefill of (2, 128) (one dropless MoE
+   group) against 128 decode steps, expert choices prefill vs decode equal
+   outside near ties.
 
 The second-to-last line is a JSON object ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -178,6 +192,8 @@ from repro_torch.kernels import segment_logw as seg_kernel  # noqa: E402
 from repro_torch.kernels.segment_logw import segment_logw_ref  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.launch.serve import Request, Server  # noqa: E402
+from repro_torch.models import mamba as mamba_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 
 ROUNDS = 5
@@ -215,6 +231,20 @@ XCHECK_PROMPT = 256
 PREFILL_BATCH, PREFILL_SEQ = 2, 4096
 PROFILED_STEPS = 8
 MODELS = {"qwen3-1.7b": "flash_attention", "rwkv6-1.6b": "rwkv_time_mix"}
+# Phase 13: the MoE and Jamba configs at full width, cut in depth (layers
+# kept): Jamba's one unit of 8 (7 Mamba, 1 attention; 4 MoE, 4 dense FFNs),
+# Kimi K2's dense prefix layer and one MoE layer.  Jamba's prefill is
+# profiled at (2, 512): at (2, 4096) its Mamba token loop launches ~10^5
+# kernels, too many to summarise.  Its f32 cross-check keeps B x S <= 256,
+# one dropless MoE group, so that prefill and decode route alike.
+MOE_CUTS = {"jamba-v0.1-52b": 8, "kimi-k2-1t-a32b": 2}
+PROFILE_SEQ = {"jamba-v0.1-52b": 512}
+MOE_XCHECK_PROMPT = 128
+# Two computations of the router probabilities (card vs CPU, prefill vs
+# decode) may choose other experts only for a token whose top-k gap is
+# within the gap their measured difference allows (``tie_tol``); such
+# tokens must stay at most this share of all.
+MAX_NEAR_TIE_SHARE = 0.02
 KERNELS = ("mrc_logw", "mrc_fixed_encode", "bernoulli_kl", "bernoulli_kl_total",
            "bernoulli_kl_profile", "segment_logw", "segment_mrc_encode", "segment_select",
            "flash_attention", "rwkv_time_mix")
@@ -1975,6 +2005,15 @@ def phase_model_kernels():
     full = (PREFILL_BATCH, PREFILL_SEQ, 16, 8, 128)   # Qwen3-1.7B's attention
     rows["flash_bf16"] = check_flash(full, torch.bfloat16, True, 0, 1, timed=True)
     rows["flash_f32"] = check_flash(full, torch.float32, True, 0, 2, timed=True)
+    # Phase 13's attention layers at their prefill shape, causal as the
+    # models run them (GQA groups of 8): bf16 for Kimi K2 and Jamba, and f32
+    # at Jamba's heads (its f32 cross-check).
+    for i, (arch, dtype) in enumerate([("kimi-k2-1t-a32b", torch.bfloat16),
+                                       ("jamba-v0.1-52b", torch.bfloat16),
+                                       ("jamba-v0.1-52b", torch.float32)]):
+        c = configs.get(arch)
+        check_flash((PREFILL_BATCH, PREFILL_SEQ, c.n_heads, c.n_kv_heads, c.head_dim), dtype,
+                    True, 0, 30 + i, timed=False)
     for dtype in (torch.float32, torch.bfloat16):
         check_flash((1, 1000, 4, 2, 64), dtype, True, 256, 3, timed=False)
         check_flash((2, 333, 6, 3, 40), dtype, False, 0, 4, timed=False)
@@ -2005,92 +2044,213 @@ def seeded_tokens(vocab, b, s, seed):
     return torch.randint(0, vocab, (b, s), generator=gen, device="cuda")
 
 
-def prefill_path(arch):
-    """Prefill at full width and depth, bf16: counts, logits, host time and
-    the kernels' share of the device time."""
-    cfg = configs.get(arch)
-    model = transformer.build(cfg)
-    params = transformer.init_params(model, seed=0, device="cuda")
+def mixer_launches(model) -> dict:
+    """Each model kernel's launches in one prefill: one a layer of its mixer."""
+    plans = transformer.layer_plans(model)
+    expect = {k: 0 for k in KERNELS}
+    expect["flash_attention"] = sum(mixer == "attn" for mixer, _ in plans)
+    expect["rwkv_time_mix"] = sum(mixer == "rwkv6" for mixer, _ in plans)
+    return expect
+
+
+@contextlib.contextmanager
+def recorded_routing():
+    """Collect every ``moe.route`` result (in call order) while open."""
+    seen, route = [], moe_mod.route
+
+    def recording(*args, **kwargs):
+        seen.append(route(*args, **kwargs))
+        return seen[-1]
+
+    moe_mod.route = recording
+    try:
+        yield seen
+    finally:
+        moe_mod.route = route
+
+
+def median_wall_ms(fn, reps: int = 3) -> tuple[float, list]:
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(walls)), walls
+
+
+def prefill_path(arch, server=None, profile_seq=None):
+    """Prefill at full width, bf16: counts (one launch per layer of the
+    kernel's mixer), logits, host time, peak memory, the share of MoE
+    assignments dropped at capacity, and the kernels' share of the device
+    time (from a (2, ``profile_seq``) prefill where one is given)."""
+    if server is None:
+        cfg = configs.get(arch)
+        model = transformer.build(cfg)
+        params = transformer.init_params(model, seed=0, device="cuda")
+    else:
+        cfg, model, params = server.cfg, server.model, server.params
     batch = {"tokens": seeded_tokens(cfg.vocab, PREFILL_BATCH, PREFILL_SEQ, 11)}
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     reset_counts()
-    logits = transformer.prefill_step(model, params, batch)
+    with recorded_routing() as routes:
+        logits = transformer.prefill_step(model, params, batch)
     torch.cuda.synchronize()
     launches = read_counts()
-    expect = {k: 0 for k in KERNELS}
-    expect[MODELS[arch]] = cfg.n_layers
+    peak = torch.cuda.max_memory_allocated()
+    expect = mixer_launches(model)
     if launches != expect:
         raise AssertionError(f"prefill {arch}: launches {launches}, expected {expect}")
+    if len(routes) != moe_layer_count(model):
+        raise AssertionError(f"prefill {arch}: {len(routes)} routings recorded, expected one "
+                             f"for each of {moe_layer_count(model)} MoE layers")
     if tuple(logits.shape) != (PREFILL_BATCH, 1, cfg.vocab) or logits.dtype != params["head"].dtype \
             or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"prefill {arch}: logits {tuple(logits.shape)} {logits.dtype} "
                              "not finite or of the wrong shape")
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        transformer.prefill_step(model, params, batch)
-        torch.cuda.synchronize()
-        walls.append(1e3 * (time.perf_counter() - t0))
-    wall = float(np.median(walls))
-    busy, events = device_profile(lambda: transformer.prefill_step(model, params, batch))
-    names = KERNEL_SYMBOLS[MODELS[arch]]
-    own = sum(e.self_device_time_total for e in events if any(n in e.key for n in names)) / 1e3
-    name = " + ".join(names)
+    drops = [round(1.0 - float(r.keep.float().mean()), 6) for r in routes]
+    del routes
+    wall, walls = median_wall_ms(lambda: transformer.prefill_step(model, params, batch))
+    kernel = MODELS.get(arch, "flash_attention")
     tokens = PREFILL_BATCH * PREFILL_SEQ
     log(f"prefill {arch} {cfg.dtype} ({PREFILL_BATCH}, {PREFILL_SEQ}), {cfg.n_layers} layers: "
         f"launches {launches}; {wall:.3f} ms median of {[round(w, 3) for w in walls]} ms "
-        f"(host clock, synchronised) = {tokens / wall * 1e3:.0f} tokens/s")
+        f"(host clock, synchronised) = {tokens / wall * 1e3:.0f} tokens/s; peak device "
+        f"memory {peak / 2**20:.1f} MiB ({(peak - base) / 2**20:.1f} above the weights)"
+        + (f"; MoE layers' share of assignments dropped at capacity {drops}" if drops else ""))
+    if profile_seq:
+        short = {"tokens": batch["tokens"][:, :profile_seq]}
+        wall, _ = median_wall_ms(lambda: transformer.prefill_step(model, params, short))
+        log(f"  profiled at ({PREFILL_BATCH}, {profile_seq}) (the full prefill launches too "
+            f"many kernels to summarise): {wall:.3f} ms unprofiled (median of 3)")
+        batch = short
+    busy, events = device_profile(lambda: transformer.prefill_step(model, params, batch))
+    names = KERNEL_SYMBOLS[kernel]
+    own = sum(e.self_device_time_total for e in events if any(n in e.key for n in names)) / 1e3
     if busy == 0:
         log(f"  profile: the profiler saw no device time (kernel share: not measured)")
     else:
         log(f"  profile: device busy {busy:.3f} ms ({busy / wall:.4f} of the unprofiled "
-            f"wall); {name} {own:.3f} ms = {own / busy:.4f} of the device time")
+            f"wall) in {sum(e.count for e in events)} kernels; {' + '.join(names)} "
+            f"{own:.3f} ms = {own / busy:.4f} of the device time")
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
             log(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
-    del params, logits
-    torch.cuda.empty_cache()
+    del logits
+    if server is None:
+        del params
+        torch.cuda.empty_cache()
     return launches
 
 
-def crosscheck_path(arch):
-    """f32, full depth: prefill's last logits vs teacher-forced decode steps."""
-    cfg = dataclasses.replace(configs.get(arch), dtype="float32")
+def tie_gap(probs: torch.Tensor, k: int) -> torch.Tensor:
+    """Per token, the least gap between adjacent probabilities among its
+    k + 1 largest: an expert choice may differ between two computations of
+    the probabilities only where this is small."""
+    top = torch.sort(probs, dim=-1, descending=True).values[..., :k + 1]
+    return (top[..., :-1] - top[..., 1:]).min(-1).values
+
+
+def tie_tol(got_probs: torch.Tensor, want_probs: torch.Tensor) -> float:
+    """The largest top-k gap at which two computations of the probabilities
+    may order a token's experts differently: each probability moved by at
+    most d = max |got - want|, so two experts swap only within 2 d (plus
+    one float32 rounding of the gap)."""
+    d = float((got_probs - want_probs).abs().max())
+    return 2 * d + torch.finfo(torch.float32).eps
+
+
+def routing_flips(label, got, want, gap, tol) -> tuple[int, int]:
+    """(tokens whose expert choices differ, tokens within ``tol`` of a tie):
+    each flip must be a near tie, and near ties a small share of tokens."""
+    diff = (got != want).any(-1)
+    far = diff & (gap > tol)
+    if bool(far.any()):
+        raise AssertionError(f"{label}: {int(far.sum())} tokens routed differently away from a "
+                             f"near tie (least top-k gap {float(gap[far].min()):.3e}, "
+                             f"allowed {tol:.3e})")
+    near = int((gap <= tol).sum())
+    if near > MAX_NEAR_TIE_SHARE * gap.numel():
+        raise AssertionError(f"{label}: {near} of {gap.numel()} tokens lie within {tol:.3e} "
+                             f"of a tie, above the share {MAX_NEAR_TIE_SHARE}")
+    return int(diff.sum()), near
+
+
+def moe_layer_count(model) -> int:
+    return sum(kind == "moe" for _, kind in transformer.layer_plans(model))
+
+
+def crosscheck_path(arch, cfg=None, prompt=XCHECK_PROMPT):
+    """f32: prefill's last logits vs teacher-forced decode steps; on an MoE
+    config also each MoE layer's expert choices, prefill vs decode (B *
+    ``prompt`` <= 256 keeps both dropless)."""
+    cfg = cfg or dataclasses.replace(configs.get(arch), dtype="float32")
     model = transformer.build(cfg)
     params = transformer.init_params(model, seed=1, device="cuda")
-    toks = seeded_tokens(cfg.vocab, PREFILL_BATCH, XCHECK_PROMPT, 12)
+    toks = seeded_tokens(cfg.vocab, PREFILL_BATCH, prompt, 12)
     reset_counts()
-    pre = transformer.prefill_step(model, params, {"tokens": toks})[:, -1]
-    n_kernel = read_counts()[MODELS[arch]]
-    cache = transformer.init_cache(model, PREFILL_BATCH, XCHECK_PROMPT, "cuda")
+    with recorded_routing() as pre_routes:
+        pre = transformer.prefill_step(model, params, {"tokens": toks})[:, -1]
+    launches = read_counts()
+    cache = transformer.init_cache(model, PREFILL_BATCH, prompt, "cuda")
     t0 = time.perf_counter()
-    for t in range(XCHECK_PROMPT):
-        dec, cache = transformer.serve_step(model, params, cache, toks[:, t:t + 1], t)
+    with recorded_routing() as dec_routes:
+        for t in range(prompt):
+            dec, cache = transformer.serve_step(model, params, cache, toks[:, t:t + 1], t)
     torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
     dec = dec[:, -1]
     rel = float(torch.linalg.vector_norm(pre - dec) / torch.linalg.vector_norm(dec))
     same = torch.equal(pre.argmax(-1), dec.argmax(-1))
-    log(f"cross-check {arch} f32 ({PREFILL_BATCH}, {XCHECK_PROMPT}), {cfg.n_layers} layers: "
-        f"prefill ({n_kernel} kernel launches) vs {XCHECK_PROMPT} decode steps "
-        f"({time.perf_counter() - t0:.2f} s): relative L2 {rel:.3e} (bound {XCHECK_REL_L2}), "
-        f"argmax equal {same}, max|logit| {float(dec.abs().max()):.3f}")
-    if n_kernel != cfg.n_layers or not rel <= XCHECK_REL_L2 or not same:
-        raise AssertionError(f"cross-check {arch}: kernel launches {n_kernel}, relative L2 "
-                             f"{rel}, argmax equal {same}")
-    del params, cache
+    flips = []
+    n_moe = moe_layer_count(model)
+    if len(pre_routes) != n_moe or len(dec_routes) != n_moe * prompt:
+        raise AssertionError(f"cross-check {arch}: {len(pre_routes)} prefill and "
+                             f"{len(dec_routes)} decode routings recorded, expected {n_moe} "
+                             f"and {n_moe * prompt}")
+    for i, r in enumerate(pre_routes):
+        if r.capacity != PREFILL_BATCH * prompt or not bool(r.keep.all()):
+            raise AssertionError(f"cross-check {arch}: MoE layer {i}'s prefill is not dropless")
+        # prefill's one group holds the tokens batch-major; decode step t
+        # routes one group of the B tokens at t
+        steps = [dec_routes[t * n_moe + i] for t in range(prompt)]
+        got = torch.stack([d.gate_idx[0] for d in steps], 1)
+        want = r.gate_idx[0].reshape(PREFILL_BATCH, prompt, -1)
+        probs = r.probs[0].reshape(PREFILL_BATCH, prompt, -1)
+        tol = tie_tol(torch.stack([d.probs[0] for d in steps], 1), probs)
+        gap = tie_gap(probs, cfg.top_k)
+        flips.append(routing_flips(f"cross-check {arch} MoE layer {i}", got, want, gap, tol)
+                     + (tol,))
+    expect = mixer_launches(model)
+    log(f"cross-check {arch} f32 ({PREFILL_BATCH}, {prompt}), {cfg.n_layers} layers: "
+        f"prefill ({launches[MODELS.get(arch, 'flash_attention')]} kernel launches) vs "
+        f"{prompt} decode steps ({seconds:.2f} s): relative L2 {rel:.3e} (bound "
+        f"{XCHECK_REL_L2}), argmax equal {same}, max|logit| {float(dec.abs().max()):.3f}"
+        + (f"; per MoE layer (tokens routed differently, tokens within the allowed tie gap, "
+           f"that gap = 2 max|dprob| + f32 eps): "
+           f"{[(f, n, float(f'{t:.3e}')) for f, n, t in flips]}" if n_moe else ""))
+    if launches != expect or not rel <= XCHECK_REL_L2 or not same:
+        raise AssertionError(f"cross-check {arch}: kernel launches {launches} (expected "
+                             f"{expect}), relative L2 {rel}, argmax equal {same}")
+    del params, cache, pre_routes, dec_routes
     torch.cuda.empty_cache()
     return rel
 
 
-def serve_path(arch):
+def serve_path(arch, server=None):
     """``Server.generate`` at full width, bf16: lengths, range, determinism,
-    no kernel launch; tokens per second and the device's busy share."""
-    cfg = configs.get(arch)
-    server = Server(cfg, max_batch=4, max_seq=128, seed=0, device="cuda")
+    no kernel launch; tokens per second, the device's busy share and the
+    peak device memory."""
+    cfg = configs.get(arch) if server is None else server.cfg
+    if server is None:
+        server = Server(cfg, max_batch=4, max_seq=128, seed=0, device="cuda")
     rng = np.random.default_rng(13)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab, n), max_new_tokens=16)
             for n in (16, 32, 48, 64)]
     server.generate(reqs[:1])   # warm-up
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     runs, walls = [], []
     for _ in range(2):
@@ -2098,6 +2258,7 @@ def serve_path(arch):
         runs.append(server.generate(reqs))
         walls.append(time.perf_counter() - t0)
     launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
     outs = runs[0]
     if any(launches.values()):
         raise AssertionError(f"serve {arch}: decode launched kernels {launches}")
@@ -2109,8 +2270,9 @@ def serve_path(arch):
     steps, wall = 64 + 16 - 1, walls[1]
     log(f"serve {arch} {cfg.dtype}: 4 requests (prompts 16/32/48/64, 16 new tokens each) "
         f"in {walls[0]:.3f} s, then {wall:.3f} s = {64 / wall:.1f} generated tokens/s, "
-        f"{steps} decode steps of batch 4 ({1e3 * wall / steps:.2f} ms/step); launches "
-        f"{launches}; first tokens {[o[:4].tolist() for o in outs]}")
+        f"{steps} decode steps of batch 4 ({1e3 * wall / steps:.2f} ms/step); peak device "
+        f"memory {peak / 2**20:.1f} MiB; launches {launches}; first tokens "
+        f"{[o[:4].tolist() for o in outs]}")
     # Device time of PROFILED_STEPS decode steps at batch 4 (profiling all
     # of generate records ~2.4e5 kernels and takes minutes to summarise).
     cache = transformer.init_cache(server.model, 4, 128, "cuda")
@@ -2131,9 +2293,160 @@ def serve_path(arch):
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
             log(f"    {e.self_device_time_total / 1e3 / PROFILED_STEPS:8.3f} ms/step  "
                 f"x{e.count // PROFILED_STEPS:<5d} {e.key[:90]}")
-    del server
+    del server, cache
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the MoE and Jamba configs.
+# ---------------------------------------------------------------------------
+
+
+def leaves(tree):
+    """A parameter tree's tensors."""
+    if isinstance(tree, dict):
+        return [v for sub in tree.values() for v in leaves(sub)]
+    return [tree]
+
+
+def moe_layer(model, params):
+    """The first MoE layer's FFN parameters."""
+    return next(p["ffn"] for (_, kind), p in zip(transformer.layer_plans(model),
+                                                 params["layers"]) if kind == "moe")
+
+
+def routing_vs_cpu(arch, cfg, router):
+    """``moe.route`` on the card against the CPU on the same float32 inputs
+    ((2, 4096) tokens in groups of 1024) and the same router: expert
+    choices equal outside near ties, and the queue places and capacity
+    decisions equal for every assignment to an expert that no flipped token
+    names in its group (a flip moves only the places in its experts'
+    queues)."""
+    n = PREFILL_BATCH * PREFILL_SEQ // 1024
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    xg = torch.randn(n, 1024, cfg.d_model, generator=gen, device="cuda")
+    card = moe_mod.route(cfg, router, xg)
+    cpu = moe_mod.route(cfg, router.cpu(), xg.cpu())
+    card_idx = card.gate_idx.cpu()
+    tol = tie_tol(card.probs.cpu(), cpu.probs)
+    flips, near = routing_flips(f"routing {arch}", card_idx, cpu.gate_idx,
+                                tie_gap(cpu.probs, cfg.top_k), tol)
+    touched = torch.zeros(n, cfg.n_experts, dtype=torch.bool)
+    for g, t in (card_idx != cpu.gate_idx).any(-1).nonzero().tolist():
+        touched[g, card_idx[g, t]] = True
+        touched[g, cpu.gate_idx[g, t]] = True
+    clean = ~torch.gather(touched, 1, cpu.gate_idx.reshape(n, -1)).reshape(cpu.gate_idx.shape)
+    for name in ("keep", "pos"):
+        if not torch.equal(getattr(card, name).cpu()[clean], getattr(cpu, name)[clean]):
+            raise AssertionError(f"routing {arch}: {name} differs card vs CPU at an assignment "
+                                 "to an expert that no flipped token names")
+    log(f"routing {arch} card vs CPU, f32 inputs ({n}, 1024, {cfg.d_model}), E {cfg.n_experts}, "
+        f"top-{cfg.top_k}, C {card.capacity}: {flips} tokens with other experts, all within "
+        f"the allowed tie gap {tol:.3e} (2 max|dprob| + f32 eps; {near} of {n * 1024} tokens "
+        f"lie that near, bound {MAX_NEAR_TIE_SHARE}); places and capacity decisions equal at "
+        f"{int(clean.sum())} of {clean.numel()} assignments (those to experts no flipped "
+        f"token names); dropped {1.0 - float(cpu.keep.float().mean()):.6f} of the assignments")
+    return flips
+
+
+def moe_work(cfg, n_tok: int, group: int = 1024) -> tuple[float, float]:
+    """(bytes, bf16 operations) of ``moe_ffn`` on ``n_tok`` tokens: every
+    expert's weights read once, the input read and the output written once;
+    the router, the one-hot dispatch and combine, the expert products over
+    the E x C places of each group, and the shared expert."""
+    d, e, ff = cfg.d_model, cfg.n_experts, cfg.moe_d_ff or cfg.d_ff
+    g = min(group, n_tok)
+    n = -(-n_tok // g)
+    c = moe_mod._capacity(cfg, g)
+    weights = 2 * (3 * e * d * ff + 3 * d * ff * cfg.shared_experts) + 4 * d * e
+    flops = (2 * n * g * d * e + 2 * 2 * n * g * e * c * d + 2 * 3 * n * e * c * d * ff
+             + 2 * 3 * n_tok * d * ff * cfg.shared_experts)
+    return weights + 2 * 2 * n_tok * d, flops
+
+
+def moe_needed_work(cfg, r, n_tok: int) -> tuple[float, float, int, int]:
+    """(bytes, bf16 operations, kept assignments, experts used) of the work
+    ``moe_ffn``'s output needs on this run's routing ``r``: the weights of
+    the experts that hold a kept assignment, the router and the shared
+    expert read once, the input read and the output written once; the
+    router, each kept assignment's expert product and the shared expert."""
+    d, e, ff = cfg.d_model, cfg.n_experts, cfg.moe_d_ff or cfg.d_ff
+    k = cfg.top_k
+    keep = r.keep.reshape(-1, k)[:n_tok]
+    kept = int(keep.sum())
+    used = int(torch.unique(r.gate_idx.reshape(-1, k)[:n_tok][keep]).numel())
+    weights = 2 * (3 * used * d * ff + 3 * d * ff * cfg.shared_experts) + 4 * d * e
+    flops = 2 * n_tok * d * e + 2 * 3 * kept * d * ff + 2 * 3 * n_tok * d * ff * cfg.shared_experts
+    return weights + 2 * 2 * n_tok * d, flops, kept, used
+
+
+def time_layers(arch, cfg, model, params):
+    """The first MoE FFN at prefill (2, 4096) and decode (4, 1) shapes, and
+    for Jamba the first Mamba mixer, each alone on seeded bf16 inputs.  Two
+    bounds: the reference's dense algorithm's work (``moe_work``) and the
+    work the output needs on this input's routing (``moe_needed_work``)."""
+    moe = moe_layer(model, params)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    x = torch.randn(PREFILL_BATCH, PREFILL_SEQ, cfg.d_model, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    for label, inp, reps in (("prefill", x, 5), ("decode", x[0, :4, None].contiguous(), 20)):
+        n_tok = inp.shape[0] * inp.shape[1]
+        nbytes, flops = moe_work(cfg, n_tok)
+        with recorded_routing() as routes:
+            moe_mod.moe_ffn(cfg, moe, inp)
+        need_bytes, need_flops, kept, used = moe_needed_work(cfg, routes[0], n_tok)
+        ms = cuda_time_ms(lambda: moe_mod.moe_ffn(cfg, moe, inp), reps=reps, warmup=2)
+        b = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        nb = bound(need_bytes, need_flops, BF16_FLOPS_PER_S)
+        log(f"  {arch} moe_ffn {tuple(inp.shape)}: {ms:.3f} ms (CUDA events, {reps} calls); "
+            f"dense algorithm's bound {b['bound_ms']:.3f} ms ({b['bound_by']}: "
+            f"{nbytes / 1e9:.2f} GB, {flops / 1e12:.3f} TFLOP) = {ms / b['bound_ms']:.2f}x; "
+            f"needed work's bound {nb['bound_ms']:.3f} ms ({nb['bound_by']}: "
+            f"{need_bytes / 1e9:.2f} GB of {used} routed experts' and the shared weights, "
+            f"{need_flops / 1e12:.3f} TFLOP for {kept} kept assignments) = "
+            f"{ms / nb['bound_ms']:.2f}x")
+    mixer = next((p["mixer"] for (kind, _), p in zip(transformer.layer_plans(model),
+                                                     params["layers"]) if kind == "mamba"), None)
+    if mixer is not None:
+        st = mamba_mod.init_mamba_state(cfg, PREFILL_BATCH, torch.bfloat16, "cuda")
+        ms = cuda_time_ms(lambda: mamba_mod.mamba_block(cfg, mixer, x, st), reps=2, warmup=1)
+        st4 = mamba_mod.init_mamba_state(cfg, 4, torch.bfloat16, "cuda")
+        step = cuda_time_ms(lambda: mamba_mod.decode_step(cfg, mixer, x[0, :4, None], st4),
+                            reps=20, warmup=2)
+        log(f"  {arch} mamba_block ({PREFILL_BATCH}, {PREFILL_SEQ}): {ms:.3f} ms; "
+            f"decode_step (4, 1): {step:.3f} ms (CUDA events)")
+
+
+def phase_moe_models():
+    """Phase 13: Jamba (one unit of 8 layers) and Kimi K2 (its dense prefix
+    layer and one MoE layer) at full width, bf16: prefill, routing card vs
+    CPU, serving; Jamba's unit in f32, prefill vs decode."""
+    out = {}
+    for arch, n_layers in MOE_CUTS.items():
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(configs.get(arch), n_layers=n_layers)
+        server = Server(cfg, max_batch=4, max_seq=128, seed=0, device="cuda")
+        n_bytes = sum(t.numel() * t.element_size() for t in
+                      [server.params["embed"], server.params["head"]]
+                      + [v for layer in server.params["layers"] for v in leaves(layer)])
+        log(f"{arch} cut to {n_layers} layers {transformer.layer_plans(server.model)}: "
+            f"weights {n_bytes / 1e9:.2f} GB (bf16, float32 routers and SSM leaves), "
+            f"drawn in {time.perf_counter() - t0:.1f} s")
+        out[f"{arch} prefill"] = prefill_path(arch, server, PROFILE_SEQ.get(arch))
+        routing_vs_cpu(arch, cfg, moe_layer(server.model, server.params)["router"])
+        time_layers(arch, cfg, server.model, server.params)
+        out[f"{arch} serve"] = serve_path(arch, server)
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phase 13 {arch}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    arch = "jamba-v0.1-52b"
+    crosscheck_path(arch, dataclasses.replace(configs.get(arch), n_layers=MOE_CUTS[arch],
+                                              dtype="float32"), prompt=MOE_XCHECK_PROMPT)
+    log(f"phase 13 {arch} f32 cross-check: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -2267,9 +2580,13 @@ def main() -> int:
     marks.append(time.perf_counter())
     served = {arch: serve_path(arch) for arch in MODELS}
     marks.append(time.perf_counter())
+    # Phase 13.
+    moe_runs = phase_moe_models()
+    marks.append(time.perf_counter())
     log(f"phase seconds: build and FL phases 2-6 {t_fl - t0:.1f}, model kernels "
         f"{marks[0] - t_fl:.1f}, prefill {marks[1] - marks[0]:.1f}, cross-check "
-        f"{marks[2] - marks[1]:.1f}, serve {marks[3] - marks[2]:.1f}")
+        f"{marks[2] - marks[1]:.1f}, serve {marks[3] - marks[2]:.1f}, MoE and Jamba "
+        f"{marks[4] - marks[3]:.1f}")
 
     def by_path(*names, paths=None):
         return {p: sum(runs[p][0][k] for k in names) for p in (paths or runs)}
@@ -2280,7 +2597,8 @@ def main() -> int:
 
     def by_model(name):
         return {**{f"{arch} prefill": prefill[arch][name] for arch in MODELS},
-                **{f"{arch} serve": served[arch][name] for arch in MODELS}}
+                **{f"{arch} serve": served[arch][name] for arch in MODELS},
+                **{path: launches[name] for path, launches in moe_runs.items()}}
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     fixed_extra = {label: {k: v for k, v in row.items() if k not in keys}

@@ -6,22 +6,29 @@ the reference does.  The reference stacks each pattern position's ``n_rep``
 layers and scans over them; the port keeps one parameter dictionary per
 layer in ``params["layers"]``, in the order the reference runs them: the
 prefix, then for each pattern position its ``n_rep`` repetitions
-(``layer_plans``).  The KV / RWKV cache is a list in the same order.
+(``layer_plans``).  The KV / RWKV / Mamba cache is a list in the same order.
+Where ``n_rep`` > 1 in a hybrid stack this is not the published interleave:
+Jamba at full depth (a pattern of 8 layers, ``n_rep`` 4) runs its four
+first-position Mamba layers first, then the four of the second position,
+and so on, as the reference does.
 
-Ported: dense attention stacks (``attn`` mixer, ``dense`` FFN) and RWKV-6
-(``rwkv6`` mixer, ``rwkv_ffn``), token inputs, RoPE, sliding windows.
-``build`` refuses what is not ported yet: MoE, Mamba (Jamba), M-RoPE and
-image embeddings (Qwen2-VL), audio frame inputs (HuBERT) and the int8 KV
-cache.  ``forward`` returns logits only; the losses and training come
-later.
+Ported: attention (``attn``), RWKV-6 (``rwkv6`` mixer, ``rwkv_ffn``) and
+Mamba (``mamba``) mixers; dense and MoE (``moe``, with shared experts,
+``first_dense_layers`` and ``moe_every``) FFNs; token inputs, RoPE, sliding
+windows.  ``build`` refuses what is not ported yet: M-RoPE and image
+embeddings (Qwen2-VL), audio frame inputs (HuBERT) and the int8 KV cache.
+``forward`` returns logits, and with ``return_aux`` the MoE layers' summed
+load-balance loss; the losses and training come later.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch import resolve_device
+from . import mamba as mamba_mod
+from . import moe as moe_mod
 from . import rwkv6 as rwkv_mod
 from .config import ArchConfig
 from .layers import attention, decode_attention, dtype_of, ffn, init_attn, init_ffn, \
@@ -54,12 +61,7 @@ class Model(NamedTuple):
 
 
 def _missing_parts(cfg: ArchConfig) -> List[str]:
-    plans = {cfg.layer_plan(i) for i in range(cfg.n_layers)}
     missing = []
-    if any(ffn_kind == "moe" for _, ffn_kind in plans):
-        missing.append("moe (mixture-of-experts FFN)")
-    if any(mixer == "mamba" for mixer, _ in plans):
-        missing.append("mamba (Jamba's SSM mixer)")
     if cfg.rope_kind == "mrope" or cfg.vlm_image_tokens:
         missing.append("mrope and image embeddings (VLM inputs)")
     if not cfg.embed_inputs:
@@ -93,15 +95,20 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig, plan) -> Dict[str, Any]:
     params: Dict[str, Any] = {"ln1": torch.zeros((cfg.d_model,), dtype=dt, device=gen.device)}
     if mixer == "attn":
         params["mixer"] = init_attn(gen, cfg)
+    elif mixer == "mamba":
+        params["mixer"] = mamba_mod.init_mamba(gen, cfg)
     elif mixer == "rwkv6":
         params["mixer"] = rwkv_mod.init_rwkv(gen, cfg)
     else:
-        raise NotImplementedError(f"mixer {mixer!r} is not ported yet")
+        raise ValueError(mixer)
     if ffn_kind != "rwkv_ffn":  # rwkv channel-mix lives inside its mixer params
         params["ln2"] = torch.zeros((cfg.d_model,), dtype=dt, device=gen.device)
-        if ffn_kind != "dense":
-            raise NotImplementedError(f"ffn {ffn_kind!r} is not ported yet")
-        params["ffn"] = init_ffn(gen, cfg)
+        if ffn_kind == "dense":
+            params["ffn"] = init_ffn(gen, cfg)
+        elif ffn_kind == "moe":
+            params["ffn"] = moe_mod.init_moe(gen, cfg)
+        else:
+            raise ValueError(ffn_kind)
     return params
 
 
@@ -113,22 +120,31 @@ def _patch_rwkv_lns(cfg: ArchConfig, params: Dict, plan) -> None:
 
 
 def apply_layer(cfg: ArchConfig, plan, params, x: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
-    """Training / prefill layer (the reference's aux loss is MoE-only)."""
+                positions: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Training / prefill layer.  Returns (x, aux_loss); the aux loss is the
+    MoE FFN's, None in every other layer (the reference's 0)."""
     mixer, ffn_kind = plan
+    aux = None
     if mixer == "attn":
         x = x + attention(cfg, params["mixer"], rmsnorm(x, params["ln1"]), positions)
+    elif mixer == "mamba":
+        st0 = mamba_mod.init_mamba_state(cfg, x.shape[0], x.dtype, x.device)
+        y, _ = mamba_mod.mamba_block(cfg, params["mixer"], rmsnorm(x, params["ln1"]), st0)
+        x = x + y
     elif mixer == "rwkv6":
         st0 = rwkv_mod.init_rwkv_state(cfg, x.shape[0], x.dtype, x.device)
         x = x + rwkv_mod.time_mix_prefill(cfg, params["mixer"], rmsnorm(x, params["ln1"]))
         y, _ = rwkv_mod.channel_mix(cfg, params["mixer"], rmsnorm(x, params["ln2_rwkv"]),
                                     st0)
-        return x + y
+        return x + y, aux
     else:
-        raise NotImplementedError(f"mixer {mixer!r} is not ported yet")
+        raise ValueError(mixer)
     if ffn_kind == "dense":
         x = x + ffn(params["ffn"], rmsnorm(x, params["ln2"]))
-    return x
+    elif ffn_kind == "moe":
+        y, aux = moe_mod.moe_ffn(cfg, params["ffn"], rmsnorm(x, params["ln2"]))
+        x = x + y
+    return x, aux
 
 
 def decode_layer(cfg: ArchConfig, plan, params, x: torch.Tensor, pos: int, cache):
@@ -138,6 +154,10 @@ def decode_layer(cfg: ArchConfig, plan, params, x: torch.Tensor, pos: int, cache
         y, cache = decode_attention(cfg, params["mixer"], rmsnorm(x, params["ln1"]),
                                     pos, cache)
         x = x + y
+    elif mixer == "mamba":
+        y, cache = mamba_mod.decode_step(cfg, params["mixer"], rmsnorm(x, params["ln1"]),
+                                         cache)
+        x = x + y
     elif mixer == "rwkv6":
         y, cache = rwkv_mod.decode_step(cfg, params["mixer"], rmsnorm(x, params["ln1"]),
                                         cache)
@@ -146,9 +166,13 @@ def decode_layer(cfg: ArchConfig, plan, params, x: torch.Tensor, pos: int, cache
             cfg, params["mixer"], rmsnorm(x, params["ln2_rwkv"]), cache)
         return x + y, cache
     else:
-        raise NotImplementedError(f"mixer {mixer!r} is not ported yet")
+        raise ValueError(mixer)
     if ffn_kind == "dense":
         x = x + ffn(params["ffn"], rmsnorm(x, params["ln2"]))
+    elif ffn_kind == "moe":
+        # (B, 1, d) is one group of B tokens: dropless (moe.DROPLESS_MAX_GROUP)
+        y, _ = moe_mod.moe_ffn(cfg, params["ffn"], rmsnorm(x, params["ln2"]))
+        x = x + y
     return x, cache
 
 
@@ -194,25 +218,37 @@ def positions_for(model: Model, batch: Dict[str, torch.Tensor], s: int,
     return torch.arange(s, device=device)[None]
 
 
-def _backbone(model: Model, params, batch) -> torch.Tensor:
+def _backbone(model: Model, params, batch) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """(hidden states, the MoE layers' aux losses in layer order)."""
     x = embed_inputs(model, params, batch)
     positions = positions_for(model, batch, x.shape[1], x.device)
+    auxes = []
     for plan, p in zip(layer_plans(model), params["layers"]):
-        x = apply_layer(model.cfg, plan, p, x, positions)
-    return x
+        x, aux = apply_layer(model.cfg, plan, p, x, positions)
+        if aux is not None:
+            auxes.append(aux)
+    return x, auxes
 
 
 @torch.no_grad()
-def forward(model: Model, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Logits (B, S, V) in the model dtype."""
-    x = _backbone(model, params, batch)
-    return rmsnorm(x, params["final_norm"]) @ params["head"]
+def forward(model: Model, params, batch: Dict[str, torch.Tensor], *,
+            return_aux: bool = False):
+    """Logits (B, S, V) in the model dtype; with ``return_aux``, (logits,
+    the MoE load-balance loss summed over the layers), as the reference's
+    ``forward`` returns them."""
+    x, auxes = _backbone(model, params, batch)
+    logits = rmsnorm(x, params["final_norm"]) @ params["head"]
+    if not return_aux:
+        return logits
+    # the reference adds every layer's aux to 0 in layer order; its dense
+    # layers' zeros change no sum
+    return logits, sum(auxes, torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 @torch.no_grad()
 def prefill_step(model: Model, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Serving prefill: full forward, last-position logits only (B, 1, V)."""
-    x = _backbone(model, params, batch)
+    x, _ = _backbone(model, params, batch)
     return rmsnorm(x[:, -1:], params["final_norm"]) @ params["head"]
 
 
@@ -230,9 +266,11 @@ def init_cache_entry(cfg: ArchConfig, plan, batch: int, s_max: int, device="cuda
         shape = (batch, s_alloc, cfg.n_kv_heads, cfg.head_dim)
         return (torch.zeros(shape, dtype=dt, device=dev),
                 torch.zeros(shape, dtype=dt, device=dev))
+    if mixer == "mamba":
+        return mamba_mod.init_mamba_state(cfg, batch, dt, dev)
     if mixer == "rwkv6":
         return rwkv_mod.init_rwkv_state(cfg, batch, dt, dev)
-    raise NotImplementedError(f"mixer {mixer!r} is not ported yet")
+    raise ValueError(mixer)
 
 
 def init_cache(model: Model, batch: int, s_max: int, device="cuda") -> List:

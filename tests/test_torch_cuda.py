@@ -916,3 +916,110 @@ def test_fused_run_on_the_card(cuda, allocation, participation):
                               n_is=cfg["n_is"])
         cpu = FLEngine(ctask, cspec).run(cshards, rounds=3, mode="fused")
         assert fused["buckets"] == cpu["buckets"] and fused["meter"] == cpu["meter"]
+
+
+# ---------------------------------------------------------------------------
+# The MoE routing and the Mamba mixer (plain torch, no kernel of their own):
+# the card's run against the port's CPU run at a mid size.  The CPU run is
+# tied to the JAX reference by test_torch_moe.py and test_torch_jamba.py.
+# ---------------------------------------------------------------------------
+
+import dataclasses  # noqa: E402
+
+from repro_torch import configs as model_configs  # noqa: E402
+from repro_torch.models import mamba as mamba_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+
+# Expert choices may differ card vs CPU only for a token whose k + 1
+# largest probabilities hold two within 2 max |dprob| (+ one f32 rounding)
+# of each other, and such tokens stay a small share.
+MAX_NEAR_TIE_SHARE = 0.02
+# f32 products and the libraries' exp/log1p in two orders, through a
+# recurrence of 300 tokens; relative to the largest entry.
+MODEL_RTOL = 1e-5
+
+
+def _moe_cfg(**kw):
+    return dataclasses.replace(model_configs.get("kimi-k2-1t-a32b").reduced(), **kw)
+
+
+def _close_to_max(got, want, rtol):
+    got, want = got.cpu().float(), want.float()
+    assert got.shape == want.shape
+    tol = rtol * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("e,k,groups", [(64, 8, 3), (384, 8, 2), (16, 2, 4)])
+def test_moe_routing_on_card_matches_cpu(cuda, e, k, groups):
+    """Groups of 1024 at capacity factor 1 (C = G k / E + 1: assignments drop)."""
+    cfg = _moe_cfg(d_model=512, n_experts=e, top_k=k, capacity_factor=1.0)
+    gen = torch.Generator(device=cuda).manual_seed(e + k)
+    router = 512 ** -0.5 * torch.randn(512, e, generator=gen, device=cuda)
+    xg = torch.randn(groups, 1024, 512, generator=gen, device=cuda)
+    card = moe_mod.route(cfg, router, xg)
+    cpu = moe_mod.route(cfg, router.cpu(), xg.cpu())
+    tol = 2 * float((card.probs.cpu() - cpu.probs).abs().max()) \
+        + torch.finfo(torch.float32).eps
+    top = torch.sort(cpu.probs, dim=-1, descending=True).values[..., :k + 1]
+    gap = (top[..., :-1] - top[..., 1:]).min(-1).values
+    assert int((gap <= tol).sum()) <= MAX_NEAR_TIE_SHARE * gap.numel()
+    card_idx = card.gate_idx.cpu()
+    diff = (card_idx != cpu.gate_idx).any(-1)
+    assert not bool((diff & (gap > tol)).any())
+    # a flip moves only the places in the queues of the experts it names
+    touched = torch.zeros(groups, e, dtype=torch.bool)
+    for g, t in diff.nonzero().tolist():
+        touched[g, card_idx[g, t]] = True
+        touched[g, cpu.gate_idx[g, t]] = True
+    clean = ~torch.gather(touched, 1, cpu.gate_idx.reshape(groups, -1)).reshape(
+        cpu.gate_idx.shape)
+    assert torch.equal(card.keep.cpu()[clean], cpu.keep[clean])
+    assert torch.equal(card.pos.cpu()[clean], cpu.pos[clean])
+    assert not bool(cpu.keep.all())
+    _close_to_max(card.probs, cpu.probs, 1e-6)
+
+
+def test_moe_top_k_on_card_keeps_the_lower_index_among_ties(cuda):
+    probs = torch.full((5, 384), 1.0 / 384, device=cuda)
+    probs[1, 200:] = 2.0 / 384
+    vals, idx = moe_mod.top_k(probs, 8)
+    assert torch.equal(idx[0].cpu(), torch.arange(8))
+    assert torch.equal(idx[1].cpu(), torch.arange(200, 208))
+    assert bool((vals[0] == probs[0, 0]).all())
+
+
+def test_moe_ffn_on_card_matches_cpu(cuda):
+    cfg = _moe_cfg(d_model=256, n_experts=16, top_k=2, moe_d_ff=512)
+    params = moe_mod.init_moe(torch.Generator(device=cuda).manual_seed(3), cfg)
+    x = torch.randn(2, 300, 256, generator=torch.Generator(device=cuda).manual_seed(4),
+                    device=cuda)
+    y, aux = moe_mod.moe_ffn(cfg, params, x)
+    y_cpu, aux_cpu = moe_mod.moe_ffn(cfg, {n: t.cpu() for n, t in params.items()}, x.cpu())
+    _close_to_max(y, y_cpu, MODEL_RTOL)
+    _close_to_max(aux, aux_cpu, MODEL_RTOL)
+
+
+def test_mamba_block_and_decode_on_card_match_cpu(cuda):
+    """From a nonzero state: the block over 300 tokens, card vs CPU, and
+    the card's decode steps against its own block over the first 8."""
+    cfg = dataclasses.replace(model_configs.get("jamba-v0.1-52b").reduced(), d_model=512)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    params = mamba_mod.init_mamba(gen, cfg)
+    state = mamba_mod.MambaState(
+        conv=torch.randn(2, cfg.mamba_d_conv - 1, cfg.d_inner, generator=gen, device=cuda),
+        ssm=0.1 * torch.randn(2, cfg.d_inner, cfg.mamba_d_state, generator=gen, device=cuda))
+    x = 0.5 * torch.randn(2, 300, 512, generator=gen, device=cuda)
+    y, st = mamba_mod.mamba_block(cfg, params, x, state)
+    cpu = {n: t.cpu() for n, t in params.items()}
+    y_cpu, st_cpu = mamba_mod.mamba_block(
+        cfg, cpu, x.cpu(), mamba_mod.MambaState(*(t.cpu() for t in state)))
+    _close_to_max(y, y_cpu, MODEL_RTOL)
+    for a, b in zip(st, st_cpu):
+        _close_to_max(a, b, MODEL_RTOL)
+    pre, _ = mamba_mod.mamba_block(cfg, params, x[:, :8], state)
+    outs = []
+    for t in range(8):
+        o, state = mamba_mod.decode_step(cfg, params, x[:, t:t + 1], state)
+        outs.append(o)
+    _close_to_max(torch.cat(outs, 1), pre.cpu(), MODEL_RTOL)
