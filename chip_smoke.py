@@ -81,6 +81,9 @@ Phases (each one fails the run with a non-zero exit; nothing is swallowed):
    blocks and Sq != Skv; RWKV with B * H above the 132 SMs and in bf16),
    with the same timings and bounds as phase 3 and
    ``scaled_dot_product_attention`` as attention's library yardstick;
+   also at HuBERT's forward shape, (2, 4096, 16 heads, 16 kv heads, 80),
+   non-causal, in bf16 (timed, bound and SDPA) and f32, and at two small
+   odd Dh-80 shapes (non-causal with Skv 450, causal with GQA);
 8. prefill, bf16, full width and depth: ``transformer.prefill_step`` on
    (2, 4096) seeded tokens for ``qwen3-1.7b`` (28 layers) and
    ``rwkv6-1.6b`` (24 layers), counts set to 0 just before and read just
@@ -142,7 +145,26 @@ Phases (each one fails the run with a non-zero exit; nothing is swallowed):
    equal in every group without a flip), phase 10's serving on the same
    weights, and Jamba's unit in f32, prefill of (2, 128) (one dropless MoE
    group) against 128 decode steps, expert choices prefill vs decode equal
-   outside near ties.
+   outside near ties;
+14. (run after phase 13) the last forward parts of the model substrate, bf16,
+   seeded random weights, each model freed before the next:
+   ``hubert-xlarge`` at full depth (48 layers, 2.52 GB), ``transformer
+   .forward`` on seeded f32 frames (2, 4096, 1280) x 0.02 (48 non-causal
+   flash launches at Dh 80; logits (2, 4096, 504) finite; host time, peak
+   memory, device profile), a 4-layer f32 cut card against the CPU on
+   (2, 256) frames, and ``Server`` and ``serve_step`` refusing it;
+   ``qwen2-vl-72b`` cut to 8 layers (19 GB): ``prefill_step`` of (2, 4096)
+   with 1024 image embeddings on a 32 x 32 grid of M-RoPE positions and the
+   text after it (8 flash launches), the last logits moved by the images,
+   ``apply_mrope`` card vs CPU at (2, 4096, 64, 128), phase 10's serving
+   (text only, M-RoPE decode), and a 2-layer f32 cut's prefill vs 128
+   decode steps; ``qwen3-1.7b`` with the int8 KV cache: ``quantize_kv``
+   card vs CPU on (4, 8192, 8, 128) (payloads and f16 scale bits equal),
+   greedy ``Server.generate`` int8 against bf16 (tokens equal up to each
+   request's first step whose bf16 top-2 margin is not above twice the
+   logit difference; at least one decisive step), the cache bytes (ratio
+   0.5625) and one timed ``serve_step`` of each cache at batch 4, S_max
+   8192, position 4000.
 
 The second-to-last line is a JSON object ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -193,6 +215,7 @@ from repro_torch.kernels.segment_logw import segment_logw_ref  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.launch.serve import Request, Server  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
+from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 
@@ -245,6 +268,17 @@ MOE_XCHECK_PROMPT = 128
 # within the gap their measured difference allows (``tie_tol``); such
 # tokens must stay at most this share of all.
 MAX_NEAR_TIE_SHARE = 0.02
+# Phase 14: Qwen2-VL cut to 8 layers at full width (its 1024 image
+# embeddings as a 32 x 32 grid of M-RoPE positions; 2 layers in f32 for
+# prefill vs decode), HuBERT at full depth with a 4-layer f32 cut held card
+# against CPU on (2, 256) frames, and qwen3-1.7b's int8 KV cache at batch 4
+# and S_max 8192, one step timed at position 4000.  M-RoPE card vs CPU,
+# relative L2: the devices' pow, cos and sin round differently, and the
+# angles reach thousands of radians.
+VLM_CUT, VLM_GRID, VLM_XCHECK_LAYERS = 8, 32, 2
+AUDIO_XCHECK_LAYERS, AUDIO_XCHECK_SEQ = 4, 256
+KV_QUANT_BATCH, KV_QUANT_SEQ, KV_QUANT_POS = 4, 8192, 4000
+MROPE_REL_L2 = 1e-6
 KERNELS = ("mrc_logw", "mrc_fixed_encode", "bernoulli_kl", "bernoulli_kl_total",
            "bernoulli_kl_profile", "segment_logw", "segment_mrc_encode", "segment_select",
            "flash_attention", "rwkv_time_mix")
@@ -2017,6 +2051,17 @@ def phase_model_kernels():
     for dtype in (torch.float32, torch.bfloat16):
         check_flash((1, 1000, 4, 2, 64), dtype, True, 256, 3, timed=False)
         check_flash((2, 333, 6, 3, 40), dtype, False, 0, 4, timed=False)
+    # Phase 14's HuBERT attention at its forward shape, non-causal, Dh 80
+    # (the bf16 kernel's second panel partial, the f32 kernel's 5-column
+    # case), and two small odd Dh-80 cases in both types.
+    c = configs.get("hubert-xlarge")
+    hubert = (PREFILL_BATCH, PREFILL_SEQ, c.n_heads, c.n_kv_heads, c.head_dim)
+    rows["flash_bf16_noncausal_dh80"] = check_flash(hubert, torch.bfloat16, False, 0, 40,
+                                                    timed=True)
+    check_flash(hubert, torch.float32, False, 0, 41, timed=False)
+    for dtype in (torch.float32, torch.bfloat16):
+        check_flash((1, 300, 4, 4, 80), dtype, False, 0, 42, timed=False, skv=450)
+        check_flash((2, 200, 4, 2, 80), dtype, True, 0, 43, timed=False)
     # The bf16 wgmma kernel at every Dh class, Sq off its 128-row blocks,
     # Sq != Skv and a window across tile edges.
     for i, (shape, causal, window, skv) in enumerate([
@@ -2079,54 +2124,62 @@ def median_wall_ms(fn, reps: int = 3) -> tuple[float, list]:
     return float(np.median(walls)), walls
 
 
-def prefill_path(arch, server=None, profile_seq=None):
+def prefill_path(arch, loaded=None, profile_seq=None, batch=None, forward=False):
     """Prefill at full width, bf16: counts (one launch per layer of the
     kernel's mixer), logits, host time, peak memory, the share of MoE
     assignments dropped at capacity, and the kernels' share of the device
-    time (from a (2, ``profile_seq``) prefill where one is given)."""
-    if server is None:
+    time (from a (2, ``profile_seq``) prefill where one is given).
+    ``loaded`` is (cfg, model, params) (else the config's own, drawn here);
+    ``batch`` the inputs (else seeded tokens); with ``forward`` the step is
+    ``transformer.forward`` (logits at every position), else
+    ``prefill_step``; it returns the launches and the logits."""
+    if loaded is None:
         cfg = configs.get(arch)
         model = transformer.build(cfg)
         params = transformer.init_params(model, seed=0, device="cuda")
     else:
-        cfg, model, params = server.cfg, server.model, server.params
-    batch = {"tokens": seeded_tokens(cfg.vocab, PREFILL_BATCH, PREFILL_SEQ, 11)}
+        cfg, model, params = loaded
+    if batch is None:
+        batch = {"tokens": seeded_tokens(cfg.vocab, PREFILL_BATCH, PREFILL_SEQ, 11)}
+    step = transformer.forward if forward else transformer.prefill_step
+    name = "forward" if forward else "prefill"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     reset_counts()
     with recorded_routing() as routes:
-        logits = transformer.prefill_step(model, params, batch)
+        logits = step(model, params, batch)
     torch.cuda.synchronize()
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     expect = mixer_launches(model)
     if launches != expect:
-        raise AssertionError(f"prefill {arch}: launches {launches}, expected {expect}")
+        raise AssertionError(f"{name} {arch}: launches {launches}, expected {expect}")
     if len(routes) != moe_layer_count(model):
-        raise AssertionError(f"prefill {arch}: {len(routes)} routings recorded, expected one "
+        raise AssertionError(f"{name} {arch}: {len(routes)} routings recorded, expected one "
                              f"for each of {moe_layer_count(model)} MoE layers")
-    if tuple(logits.shape) != (PREFILL_BATCH, 1, cfg.vocab) or logits.dtype != params["head"].dtype \
+    shape = (PREFILL_BATCH, PREFILL_SEQ if forward else 1, cfg.vocab)
+    if tuple(logits.shape) != shape or logits.dtype != params["head"].dtype \
             or not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"prefill {arch}: logits {tuple(logits.shape)} {logits.dtype} "
+        raise AssertionError(f"{name} {arch}: logits {tuple(logits.shape)} {logits.dtype} "
                              "not finite or of the wrong shape")
     drops = [round(1.0 - float(r.keep.float().mean()), 6) for r in routes]
     del routes
-    wall, walls = median_wall_ms(lambda: transformer.prefill_step(model, params, batch))
+    wall, walls = median_wall_ms(lambda: step(model, params, batch))
     kernel = MODELS.get(arch, "flash_attention")
     tokens = PREFILL_BATCH * PREFILL_SEQ
-    log(f"prefill {arch} {cfg.dtype} ({PREFILL_BATCH}, {PREFILL_SEQ}), {cfg.n_layers} layers: "
+    log(f"{name} {arch} {cfg.dtype} ({PREFILL_BATCH}, {PREFILL_SEQ}), {cfg.n_layers} layers: "
         f"launches {launches}; {wall:.3f} ms median of {[round(w, 3) for w in walls]} ms "
         f"(host clock, synchronised) = {tokens / wall * 1e3:.0f} tokens/s; peak device "
         f"memory {peak / 2**20:.1f} MiB ({(peak - base) / 2**20:.1f} above the weights)"
         + (f"; MoE layers' share of assignments dropped at capacity {drops}" if drops else ""))
     if profile_seq:
         short = {"tokens": batch["tokens"][:, :profile_seq]}
-        wall, _ = median_wall_ms(lambda: transformer.prefill_step(model, params, short))
+        wall, _ = median_wall_ms(lambda: step(model, params, short))
         log(f"  profiled at ({PREFILL_BATCH}, {profile_seq}) (the full prefill launches too "
             f"many kernels to summarise): {wall:.3f} ms unprofiled (median of 3)")
         batch = short
-    busy, events = device_profile(lambda: transformer.prefill_step(model, params, batch))
+    busy, events = device_profile(lambda: step(model, params, batch))
     names = KERNEL_SYMBOLS[kernel]
     own = sum(e.self_device_time_total for e in events if any(n in e.key for n in names)) / 1e3
     if busy == 0:
@@ -2137,11 +2190,10 @@ def prefill_path(arch, server=None, profile_seq=None):
             f"{own:.3f} ms = {own / busy:.4f} of the device time")
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
             log(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
-    del logits
-    if server is None:
+    if loaded is None:
         del params
         torch.cuda.empty_cache()
-    return launches
+    return launches, logits
 
 
 def tie_gap(probs: torch.Tensor, k: int) -> torch.Tensor:
@@ -2304,10 +2356,25 @@ def serve_path(arch, server=None):
 
 
 def leaves(tree):
-    """A parameter tree's tensors."""
+    """A parameter tree's (or a cache's) tensors."""
     if isinstance(tree, dict):
         return [v for sub in tree.values() for v in leaves(sub)]
+    if isinstance(tree, (list, tuple)):
+        return [v for sub in tree for v in leaves(sub)]
     return [tree]
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def tree_to(tree, device):
+    """A parameter tree (dicts and lists of tensors) on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
 
 
 def moe_layer(model, params):
@@ -2427,13 +2494,11 @@ def phase_moe_models():
         t0 = time.perf_counter()
         cfg = dataclasses.replace(configs.get(arch), n_layers=n_layers)
         server = Server(cfg, max_batch=4, max_seq=128, seed=0, device="cuda")
-        n_bytes = sum(t.numel() * t.element_size() for t in
-                      [server.params["embed"], server.params["head"]]
-                      + [v for layer in server.params["layers"] for v in leaves(layer)])
         log(f"{arch} cut to {n_layers} layers {transformer.layer_plans(server.model)}: "
-            f"weights {n_bytes / 1e9:.2f} GB (bf16, float32 routers and SSM leaves), "
+            f"weights {tree_bytes(server.params) / 1e9:.2f} GB (bf16, float32 routers and SSM leaves), "
             f"drawn in {time.perf_counter() - t0:.1f} s")
-        out[f"{arch} prefill"] = prefill_path(arch, server, PROFILE_SEQ.get(arch))
+        out[f"{arch} prefill"], _ = prefill_path(arch, (cfg, server.model, server.params),
+                                                 PROFILE_SEQ.get(arch))
         routing_vs_cpu(arch, cfg, moe_layer(server.model, server.params)["router"])
         time_layers(arch, cfg, server.model, server.params)
         out[f"{arch} serve"] = serve_path(arch, server)
@@ -2446,6 +2511,249 @@ def phase_moe_models():
     crosscheck_path(arch, dataclasses.replace(configs.get(arch), n_layers=MOE_CUTS[arch],
                                               dtype="float32"), prompt=MOE_XCHECK_PROMPT)
     log(f"phase 13 {arch} f32 cross-check: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: Qwen2-VL's image inputs and M-RoPE, HuBERT's frames, the int8 KV
+# cache.
+# ---------------------------------------------------------------------------
+
+
+def seeded_normal(shape, seed: int, scale: float = 1.0) -> torch.Tensor:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return scale * torch.randn(shape, generator=gen, device="cuda")
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    return float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+
+
+def grid_positions(b: int, s: int, n_img: int, side: int) -> torch.Tensor:
+    """(B, S, 3) M-RoPE ids in Qwen2-VL's scheme (arXiv:2409.12191 §2.1):
+    image patch i < n_img at (t, h, w) = (0, i // side, i % side), text
+    token j >= n_img at t = h = w = side + (j - n_img), after the grid's
+    largest id."""
+    i = torch.arange(s, device="cuda")
+    text = side + i - n_img
+    pos = torch.stack([torch.where(i < n_img, 0, text), torch.where(i < n_img, i // side, text),
+                       torch.where(i < n_img, i % side, text)], -1)
+    return pos[None].expand(b, s, 3)
+
+
+def refused(label, fn) -> str:
+    """``fn`` must raise ``ValueError``; its message."""
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    raise AssertionError(f"{label} did not refuse an encoder-only config")
+
+
+def phase_audio():
+    """HuBERT at full width and depth, bf16: ``forward`` on seeded frames
+    (48 flash launches, non-causal, Dh 80), profiled; a 4-layer f32 cut
+    card against CPU; no decode step."""
+    arch = "hubert-xlarge"
+    t0 = time.perf_counter()
+    cfg = configs.get(arch)
+    model = transformer.build(cfg)
+    params = transformer.init_params(model, seed=0, device="cuda")
+    log(f"{arch}: {cfg.n_layers} layers, weights {tree_bytes(params) / 1e9:.3f} GB (bf16, no "
+        f"embedding: frame inputs), drawn in {time.perf_counter() - t0:.1f} s")
+    frames = seeded_normal((PREFILL_BATCH, PREFILL_SEQ, cfg.d_model), 16, 0.02)
+    launches, logits = prefill_path(arch, (cfg, model, params), batch={"inputs": frames},
+                                    forward=True)
+    cache = transformer.init_cache(model, 1, 8, "cuda")
+    why = [refused("Server", lambda: Server(cfg, max_batch=1, max_seq=8, device="cuda")),
+           refused("serve_step", lambda: transformer.serve_step(
+               model, params, cache, torch.zeros((1, 1), dtype=torch.long, device="cuda"), 0))]
+    log(f"  {arch} refuses decode: Server: {why[0]!r}; serve_step: {why[1]!r}")
+    del params, logits, cache
+    torch.cuda.empty_cache()
+
+    cut = dataclasses.replace(cfg, n_layers=AUDIO_XCHECK_LAYERS, dtype="float32")
+    model = transformer.build(cut)
+    params = transformer.init_params(model, seed=1, device="cuda")
+    x = seeded_normal((PREFILL_BATCH, AUDIO_XCHECK_SEQ, cfg.d_model), 17, 0.02)
+    reset_counts()
+    card = transformer.forward(model, params, {"inputs": x})
+    torch.cuda.synchronize()
+    flash = read_counts()["flash_attention"]
+    cpu = transformer.forward(model, tree_to(params, "cpu"), {"inputs": x.cpu()})
+    rel = rel_l2(card, cpu)
+    log(f"  {arch} f32 cut to {AUDIO_XCHECK_LAYERS} layers, frames ({PREFILL_BATCH}, "
+        f"{AUDIO_XCHECK_SEQ}): card ({flash} f32 flash launches) vs CPU logits relative L2 "
+        f"{rel:.3e} (bound {XCHECK_REL_L2})")
+    if flash != AUDIO_XCHECK_LAYERS or not rel <= XCHECK_REL_L2:
+        raise AssertionError(f"{arch} card vs CPU: {flash} launches, relative L2 {rel}")
+    del params, card
+    torch.cuda.empty_cache()
+    return {f"{arch} forward": launches}
+
+
+def phase_vlm():
+    """Qwen2-VL cut to 8 layers at full width, bf16: prefill of (2, 4096)
+    with 1024 image embeddings on a 32 x 32 grid of M-RoPE positions (8
+    flash launches), the image's effect on the last logits, ``apply_mrope``
+    card vs CPU at the attention's shape, ``Server.generate`` (text only,
+    M-RoPE decode, no launch); then 2 layers in f32, prefill vs decode."""
+    arch = "qwen2-vl-72b"
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(configs.get(arch), n_layers=VLM_CUT)
+    server = Server(cfg, max_batch=4, max_seq=128, seed=0, device="cuda")
+    log(f"{arch} cut to {VLM_CUT} layers: weights {tree_bytes(server.params) / 1e9:.2f} GB "
+        f"(bf16), drawn in {time.perf_counter() - t0:.1f} s")
+    n_img = cfg.vlm_image_tokens
+    batch = {"tokens": seeded_tokens(cfg.vocab, PREFILL_BATCH, PREFILL_SEQ, 11),
+             "image_embeds": seeded_normal((PREFILL_BATCH, n_img, cfg.d_model), 18, 0.02),
+             "positions": grid_positions(PREFILL_BATCH, PREFILL_SEQ, n_img, VLM_GRID)}
+    launches, logits = prefill_path(arch, (cfg, server.model, server.params), batch=batch)
+    moved = transformer.prefill_step(server.model, server.params,
+                                     dict(batch, image_embeds=batch["image_embeds"] + 0.1))
+    delta = float((moved.float() - logits.float()).abs().max())
+    log(f"  {arch}: image embeddings + 0.1 move the last logits by up to {delta:.4e}")
+    if not delta > 1e-6:
+        raise AssertionError(f"{arch}: the image embeddings do not reach the last logits")
+    del moved, logits
+    x = seeded_normal((PREFILL_BATCH, PREFILL_SEQ, cfg.n_heads, cfg.head_dim), 19)
+    args = (cfg.rope_theta, cfg.mrope_sections)
+    got = layers_mod.apply_mrope(x, batch["positions"], *args)
+    rel = rel_l2(got, layers_mod.apply_mrope(x.cpu(), batch["positions"].cpu(), *args))
+    inv = layers_mod.rope_freqs(cfg.head_dim, cfg.rope_theta, "cuda").cpu()
+    n_inv = int((inv != layers_mod.rope_freqs(cfg.head_dim, cfg.rope_theta, "cpu")).sum())
+    log(f"  apply_mrope {tuple(x.shape)} f32, grid positions: card vs CPU relative L2 "
+        f"{rel:.3e} (bound {MROPE_REL_L2}); inverse frequencies that differ card vs CPU: "
+        f"{n_inv} of {inv.numel()}")
+    if not rel <= MROPE_REL_L2:
+        raise AssertionError(f"apply_mrope card vs CPU: relative L2 {rel}")
+    del x, got, batch
+    served = serve_path(arch, server)
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    crosscheck_path(arch, dataclasses.replace(configs.get(arch), n_layers=VLM_XCHECK_LAYERS,
+                                              dtype="float32"), prompt=MOE_XCHECK_PROMPT)
+    return {f"{arch} prefill": launches, f"{arch} serve": served}
+
+
+def replay_logits(server, seqs: torch.Tensor, first: int) -> torch.Tensor:
+    """Teacher-forced decode of ``seqs`` (B, T) from step 0: the f32 logits
+    of steps ``first`` .. T - 1, (B, T - first, V)."""
+    cache = transformer.init_cache(server.model, seqs.shape[0], server.max_seq, "cuda")
+    out = []
+    for t in range(seqs.shape[1]):
+        logits, cache = transformer.serve_step(server.model, server.params, cache,
+                                               seqs[:, t:t + 1], t)
+        if t >= first:
+            out.append(logits[:, 0].float())
+    return torch.stack(out, 1)
+
+
+def phase_kv_quant():
+    """qwen3-1.7b's int8 KV cache at full width and depth: ``quantize_kv``
+    card vs CPU (equal), greedy ``Server.generate`` int8 against bf16 (the
+    tokens agree up to each request's first step that is not decisive),
+    the cache bytes, and one timed decode step of each cache at S_max 8192."""
+    arch = "qwen3-1.7b"
+    cfg = configs.get(arch)
+    x = seeded_normal((KV_QUANT_BATCH, KV_QUANT_SEQ, cfg.n_kv_heads, cfg.head_dim), 20, 3.0
+                      ).to(torch.bfloat16)
+    q, sc = layers_mod.quantize_kv(x)
+    q_cpu, sc_cpu = layers_mod.quantize_kv(x.cpu())
+    n_q = int((q.cpu() != q_cpu).sum())
+    n_s = int((sc.cpu().view(torch.int16) != sc_cpu.view(torch.int16)).sum())
+    log(f"quantize_kv {tuple(x.shape)} bf16 values: card vs CPU, {n_q} of {q.numel()} int8 "
+        f"payloads and {n_s} of {sc.numel()} f16 scales differ")
+    if n_q or n_s:
+        raise AssertionError(f"quantize_kv card vs CPU: {n_q} payloads, {n_s} scales differ")
+    del x, q, sc
+
+    servers = {"bf16": Server(cfg, max_batch=4, max_seq=128, seed=0, device="cuda"),
+               "int8": Server(dataclasses.replace(cfg, kv_cache_quant=True), max_batch=4,
+                              max_seq=128, seed=0, device="cuda")}
+    servers["int8"].load_params(servers["bf16"].params)
+    rng = np.random.default_rng(13)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab, n), max_new_tokens=16)
+            for n in (16, 32, 48, 64)]
+    reset_counts()
+    toks = {k: srv.generate(reqs) for k, srv in servers.items()}
+    launches = read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"int8-cache serve {arch}: decode launched kernels {launches}")
+    # The bf16 run's sequences replayed through both caches: a step is
+    # decisive where the bf16 top-2 margin exceeds twice the largest logit
+    # difference int8 vs bf16 at that step (tests/test_kv_quant.py's rule).
+    seqs = np.zeros((4, 64 + 15), np.int64)
+    for i, r in enumerate(reqs):
+        seqs[i, 64 - len(r.prompt):64] = r.prompt
+        seqs[i, 64:] = toks["bf16"][i][:15]
+    seqs = torch.as_tensor(seqs, device="cuda")
+    lg, lq = (replay_logits(servers[k], seqs, 63) for k in ("bf16", "int8"))
+    err = (lq - lg).abs().amax(dim=(0, 2))                            # (16,)
+    top2 = torch.topk(lg, 2, dim=-1).values
+    decisive = (top2[..., 0] - top2[..., 1] > 2 * err).cpu()          # (4, 16)
+    same = (lq.argmax(-1) == lg.argmax(-1)).cpu()
+    agree = []
+    for i in range(4):
+        first = int((~decisive[i]).nonzero()[0]) if not bool(decisive[i].all()) else 16
+        agree.append(int((toks["int8"][i][:first] == toks["bf16"][i][:first]).sum()) == first)
+    log(f"serve {arch} greedy, int8 vs bf16 cache: logit difference per step {err.min():.4f}-"
+        f"{err.max():.4f}; {int(decisive.sum())} of 64 steps decisive, argmax equal at "
+        f"{int(same[decisive].sum())} of them ({int(same.sum())} of 64 in all); generated "
+        f"tokens equal at {sum(int((a == b).sum()) for a, b in zip(toks['int8'], toks['bf16']))}"
+        f" of 64, each request's up to its first step that is not decisive: {agree}")
+    if not bool(decisive.any()) or not bool(same[decisive].all()) or not all(agree):
+        raise AssertionError(f"int8 cache {arch}: decisive steps {int(decisive.sum())}, argmax "
+                             f"equal there {bool(same[decisive].all())}, prefixes equal {agree}")
+    del lg, lq
+
+    caches = {k: transformer.init_cache(srv.model, KV_QUANT_BATCH, KV_QUANT_SEQ, "cuda")
+              for k, srv in servers.items()}
+    nbytes = {k: tree_bytes(c) for k, c in caches.items()}
+    ratio = nbytes["int8"] / nbytes["bf16"]
+    log(f"KV cache ({KV_QUANT_BATCH}, {KV_QUANT_SEQ}) x {cfg.n_layers} layers: bf16 "
+        f"{nbytes['bf16'] / 1e9:.3f} GB, int8 {nbytes['int8'] / 1e9:.3f} GB, ratio {ratio}")
+    if ratio != 0.5625:
+        raise AssertionError(f"int8 cache bytes ratio {ratio}, expected 0.5625")
+    tok = seeded_tokens(cfg.vocab, KV_QUANT_BATCH, 1, 21)
+    params = servers["bf16"].params     # a step reads every weight but the embedding's rows
+    weights = tree_bytes([params["layers"], params["final_norm"], params["head"]])
+    steps = {}
+    for k, srv in servers.items():
+        def step(srv=srv, cache=caches[k]):
+            transformer.serve_step(srv.model, srv.params, cache, tok, KV_QUANT_POS)
+        ms = cuda_time_ms(step, reps=10, warmup=2)
+        busy, events = device_profile(lambda: [step() for _ in range(5)], 5)
+        cache_ms = bound(nbytes[k], 0)["bound_ms"]
+        step_ms = bound(nbytes[k] + weights, 0)["bound_ms"]
+        steps[k] = ms
+        log(f"  serve_step {k} cache, batch {KV_QUANT_BATCH}, S_max {KV_QUANT_SEQ}, pos "
+            f"{KV_QUANT_POS}: {ms:.3f} ms a step (CUDA events, 10 steps); device busy "
+            f"{fmt_ms(busy or None)} a step in {sum(e.count for e in events) // 5} kernels "
+            f"({busy / ms:.4f} of the step); bounds: the cache read {cache_ms:.3f} ms "
+            f"({nbytes[k] / 1e9:.3f} GB), with the weights {step_ms:.3f} ms = {ms / step_ms:.2f}x")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:5]:
+            log(f"    {e.self_device_time_total / 1e3 / 5:8.3f} ms/step  x{e.count // 5:<5d} "
+                f"{e.key[:90]}")
+    log(f"  int8 / bf16 step time: {steps['int8'] / steps['bf16']:.4f}")
+    del servers, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {f"{arch} int8-cache serve": launches}
+
+
+def phase_multimodal_models():
+    """Phase 14: HuBERT, Qwen2-VL and the int8 KV cache, one after the
+    other, each model freed before the next."""
+    out, seconds = {}, {}
+    for name, fn in (("hubert", phase_audio), ("qwen2-vl", phase_vlm),
+                     ("int8 cache", phase_kv_quant)):
+        t0 = time.perf_counter()
+        out.update(fn())
+        seconds[name] = round(time.perf_counter() - t0, 1)
+    log(f"phase 14 seconds: {seconds}")
     return out
 
 
@@ -2573,7 +2881,7 @@ def main() -> int:
 
     # Phases 8-10.
     marks = [time.perf_counter()]
-    prefill = {arch: prefill_path(arch) for arch in MODELS}
+    prefill = {arch: prefill_path(arch)[0] for arch in MODELS}
     marks.append(time.perf_counter())
     for arch in MODELS:
         crosscheck_path(arch)
@@ -2583,10 +2891,14 @@ def main() -> int:
     # Phase 13.
     moe_runs = phase_moe_models()
     marks.append(time.perf_counter())
+    # Phase 14.
+    moe_runs.update(phase_multimodal_models())
+    marks.append(time.perf_counter())
     log(f"phase seconds: build and FL phases 2-6 {t_fl - t0:.1f}, model kernels "
         f"{marks[0] - t_fl:.1f}, prefill {marks[1] - marks[0]:.1f}, cross-check "
         f"{marks[2] - marks[1]:.1f}, serve {marks[3] - marks[2]:.1f}, MoE and Jamba "
-        f"{marks[4] - marks[3]:.1f}")
+        f"{marks[4] - marks[3]:.1f}, HuBERT, Qwen2-VL and the int8 cache "
+        f"{marks[5] - marks[4]:.1f}")
 
     def by_path(*names, paths=None):
         return {p: sum(runs[p][0][k] for k in names) for p in (paths or runs)}
@@ -2635,7 +2947,9 @@ def main() -> int:
             ("flash_attn", "flash_attn", "src/repro/kernels/flash_attn.py:95",
              model_rows["flash_bf16"], by_model("flash_attention"),
              {"shape": model_rows["flash_bf16"]["shape"], "dtype": "bfloat16",
-              "f32": model_rows["flash_f32"], "hgmma_in_sass": hgmma}),
+              "f32": model_rows["flash_f32"],
+              "bf16_noncausal_dh80": model_rows["flash_bf16_noncausal_dh80"],
+              "hgmma_in_sass": hgmma}),
             ("rwkv_chunk", "rwkv_chunk", "src/repro/kernels/rwkv_chunk.py:90",
              model_rows["rwkv"], by_model("rwkv_time_mix"),
              {"shape": model_rows["rwkv"]["shape"]})]

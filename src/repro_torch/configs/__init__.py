@@ -1,9 +1,10 @@
 """Assigned-architecture registry (port of ``repro.configs``).
 
-``get(arch_id)`` returns the exact ArchConfig from the assignment table.
-The reference's ``input_specs`` (``jax.ShapeDtypeStruct`` stand-ins for the
-dry-run) has no counterpart here.  ``get`` succeeds for every arch; what
-the port cannot run yet, ``models.transformer.build`` refuses.
+``get(arch_id)`` returns the exact ArchConfig from the assignment table,
+``all_configs()`` every one of them by module name; ``models.transformer
+.build`` takes each.  The reference's ``input_specs`` (``jax.ShapeDtypeStruct``
+stand-ins for the dry-run) is not ported yet: its one caller, the dry run,
+is not either.
 
 Shapes:
     train_4k     seq 4,096    global_batch 256   (train_step)
@@ -58,6 +59,10 @@ def get(arch_id: str) -> ArchConfig:
     mod_name = ALIASES.get(arch_id, arch_id)
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG
+
+
+def all_configs() -> Dict[str, ArchConfig]:
+    return {a: get(a) for a in ARCH_IDS}
 
 
 def shape_supported(cfg: ArchConfig, shape: str) -> Optional[str]:

@@ -93,7 +93,8 @@ def model_params(cfg, ref_params, device="cuda"):
     Values and layouts are kept (projections stay ``(d_in, d_out)``); the
     stacked ``pattern`` leaves are unstacked along axis 0 into one layer
     each (their leading axis is ``n_rep``), in the order
-    ``transformer.layer_plans`` runs them.
+    ``transformer.layer_plans`` runs them.  A tree without ``embed`` (a
+    config with frame inputs) gives parameters without one.
     """
     conv = lambda a: _array_tensor(a, device)  # noqa: E731
     layers = [_tree(p, conv) for p in ref_params["prefix"]]
@@ -104,5 +105,6 @@ def model_params(cfg, ref_params, device="cuda"):
     if len(layers) != cfg.n_layers:
         raise ValueError(f"{cfg.name}: the tree holds {len(layers)} layers, "
                          f"the config {cfg.n_layers}")
-    return {"embed": conv(ref_params["embed"]), "layers": layers,
-            "final_norm": conv(ref_params["final_norm"]), "head": conv(ref_params["head"])}
+    out = {"embed": conv(ref_params["embed"])} if "embed" in ref_params else {}
+    return {**out, "layers": layers, "final_norm": conv(ref_params["final_norm"]),
+            "head": conv(ref_params["head"])}

@@ -1,10 +1,10 @@
 """Classifier networks for the FL experiments (port of ``repro.fl.nets``).
 
-Bias-free MLP with the *signed-constant* initialization of Ramanujan et al.
-(2020): w = sign(n) * std_kaiming.  The network's frozen weights are module
-buffers; ``forward`` also takes explicit weights, batched over leading axes
-(one set per client), which replaces the reference's ``vmap`` over clients.
-``make_cnn`` comes with a later slice.
+Bias-free MLP and CNN with the *signed-constant* initialization of
+Ramanujan et al. (2020): w = sign(n) * std_kaiming.  A network's frozen
+weights are module buffers; the MLP's ``forward`` also takes explicit
+weights, batched over leading axes (one set per client), which replaces the
+reference's ``vmap`` over clients.
 """
 from __future__ import annotations
 
@@ -18,24 +18,19 @@ import torch.nn.functional as F
 from repro_torch import prng, resolve_device
 
 
-class MLP(nn.Module):
-    """ReLU MLP ``dims[0] -> ... -> dims[-1]`` on flattened NHWC inputs."""
+class _FrozenNet(nn.Module):
+    """Frozen weights as buffers ``w0, w1, ...``, one per ``(shape, fan_in)``
+    of ``draws``, drawn by ``init`` as the reference's ``init`` draws them."""
 
-    def __init__(self, dims: Sequence[int], signed_constant: bool = False,
-                 device="cuda"):
-        super().__init__()
-        self.dims = tuple(int(d) for d in dims)
-        self.signed_constant = signed_constant
+    def _register(self, draws: List[Tuple[Tuple[int, ...], int]], signed_constant: bool,
+                  device) -> None:
+        self.draws, self.signed_constant = draws, signed_constant
         dev = resolve_device(device)
-        for i, (a, b) in enumerate(self.shapes):
-            self.register_buffer(f"w{i}", torch.zeros(a, b, device=dev))
-
-    @property
-    def shapes(self) -> List[Tuple[int, int]]:
-        return list(zip(self.dims[:-1], self.dims[1:]))
+        for i, (shape, _) in enumerate(draws):
+            self.register_buffer(f"w{i}", torch.zeros(shape, device=dev))
 
     def frozen_weights(self) -> List[torch.Tensor]:
-        return [getattr(self, f"w{i}") for i in range(len(self.shapes))]
+        return [getattr(self, f"w{i}") for i in range(len(self.draws))]
 
     @torch.no_grad()
     def init(self, key: torch.Tensor) -> List[torch.Tensor]:
@@ -45,12 +40,26 @@ class MLP(nn.Module):
         ``signed_constant`` (bit-exact with the reference: the sign of the
         normal draw does not depend on ``erfinv``'s rounding).
         """
-        keys = prng.split(key.to(self.w0.device), len(self.shapes))
-        for k, (a, b), w in zip(keys, self.shapes, self.frozen_weights()):
-            n = prng.normal(k, (a, b))
-            std = math.sqrt(2.0 / a)
+        keys = prng.split(key.to(self.w0.device), len(self.draws))
+        for k, (shape, fan_in), w in zip(keys, self.draws, self.frozen_weights()):
+            n = prng.normal(k, shape)
+            std = math.sqrt(2.0 / fan_in)
             w.copy_(torch.sign(n) * std if self.signed_constant else n * std)
         return self.frozen_weights()
+
+
+class MLP(_FrozenNet):
+    """ReLU MLP ``dims[0] -> ... -> dims[-1]`` on flattened NHWC inputs."""
+
+    def __init__(self, dims: Sequence[int], signed_constant: bool = False,
+                 device="cuda"):
+        super().__init__()
+        self.dims = tuple(int(d) for d in dims)
+        self._register([((a, b), a) for a, b in self.shapes], signed_constant, device)
+
+    @property
+    def shapes(self) -> List[Tuple[int, int]]:
+        return list(zip(self.dims[:-1], self.dims[1:]))
 
     def forward(self, x: torch.Tensor,
                 weights: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
@@ -62,6 +71,50 @@ class MLP(nn.Module):
         for w in weights[:-1]:
             h = F.relu(torch.matmul(h, w))
         return torch.matmul(h, weights[-1])
+
+
+class CNN(_FrozenNet):
+    """Conv(3x3, SAME) + ReLU + MaxPool(2x2, VALID) blocks, then a dense
+    ReLU head; bias-free.  The reference's layouts: HWIO conv weights,
+    ``(d_in, d_out)`` dense weights and NHWC inputs; the layout is
+    converted at the call (torch's convolution is NCHW/OIHW)."""
+
+    def __init__(self, hw: int = 14, channels: int = 1, n_classes: int = 10,
+                 conv_widths: Sequence[int] = (32, 64), dense_widths: Sequence[int] = (128,),
+                 signed_constant: bool = False, device="cuda"):
+        super().__init__()
+        final_hw = hw // (2 ** len(conv_widths))
+        assert final_hw >= 1, "too many pools for input size"
+        self.n_conv = len(conv_widths)
+        draws, cin = [], channels
+        for w in conv_widths:
+            draws.append(((3, 3, cin, w), 3 * 3 * cin))
+            cin = w
+        din = final_hw * final_hw * cin
+        for w in dense_widths:
+            draws.append(((din, w), din))
+            din = w
+        draws.append(((din, n_classes), din))
+        self._register(draws, signed_constant, device)
+
+    def forward(self, x: torch.Tensor,
+                weights: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+        """Logits of ``x`` (N, H, W, C); ``weights`` default to the buffers."""
+        weights = self.frozen_weights() if weights is None else weights
+        h = x.permute(0, 3, 1, 2)                                    # NHWC -> NCHW
+        for w in weights[:self.n_conv]:
+            h = F.conv2d(h, w.permute(3, 2, 0, 1), padding=1)        # HWIO -> OIHW
+            h = F.max_pool2d(F.relu(h), 2)
+        h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)           # flattened as NHWC
+        for w in weights[self.n_conv:-1]:
+            h = F.relu(h @ w)
+        return h @ weights[-1]
+
+
+def make_cnn(hw: int = 14, channels: int = 1, n_classes: int = 10,
+             conv_widths: Sequence[int] = (32, 64), dense_widths: Sequence[int] = (128,),
+             signed_constant: bool = False, device="cuda") -> CNN:
+    return CNN(hw, channels, n_classes, conv_widths, dense_widths, signed_constant, device)
 
 
 def make_mlp(in_dim: int, widths: Sequence[int] = (256, 256), n_classes: int = 10,

@@ -10,12 +10,14 @@ do no arithmetic and have no counterpart: the port runs on one card.
 ``attention`` (training and prefill) goes through ``kernels.ops
 .flash_attention``, once per call: the CUDA kernel on the card, the port of
 the reference's chunked lazy-softmax scan on the CPU.  ``decode_attention``
-is plain PyTorch, as the reference computes it outside any Pallas kernel.
-M-RoPE and the int8 KV cache are not ported yet.
+is plain PyTorch, as the reference computes it outside any Pallas kernel;
+so are M-RoPE (Qwen2-VL's three position streams) and the int8 KV cache
+(``quantize_kv``/``dequantize_kv``: int8 payloads, f16 scales per group of
+16 channels).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -69,11 +71,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.
+
+    x: (..., S, H, Dh); positions3: (..., S, 3) -- (t, h, w) position ids.
+    The Dh/2 frequency slots are partitioned into three contiguous sections
+    (temporal / height / width); each section rotates by its own position id.
+    """
+    dh = x.shape[-1]
+    half = dh // 2
+    assert sum(sections) == half, (sections, half)
+    inv = rope_freqs(dh, theta, x.device)
+    # section id per frequency slot -> pick the matching position stream
+    sect = torch.cat([torch.full((n,), i, dtype=torch.int64, device=x.device)
+                      for i, n in enumerate(sections)])
+    pos = positions3.to(torch.float32)[..., sect]                 # (..., S, Dh/2)
+    ang = pos * inv
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 def rotate(cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     if cfg.rope_kind == "none":
         return x
     if cfg.rope_kind == "mrope":
-        raise NotImplementedError("M-RoPE (rope_kind='mrope') is not ported yet")
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
     return apply_rope(x, positions, cfg.rope_theta)
 
 
@@ -114,8 +139,8 @@ def attention(cfg: ArchConfig, params, x: torch.Tensor,
               positions: torch.Tensor) -> torch.Tensor:
     """Multi-head GQA self attention (training / prefill).
 
-    x: (B, S, d); positions: (B, S) or (1, S).  One ``ops.flash_attention``
-    call per layer.
+    x: (B, S, d); positions: (B, S) or (1, S) (or (B, S, 3) for M-RoPE).
+    One ``ops.flash_attention`` call per layer.
     """
     b, s, _ = x.shape
     q, k, v = _qkv(cfg, params, x)
@@ -126,44 +151,90 @@ def attention(cfg: ArchConfig, params, x: torch.Tensor,
     return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ params["wo"]
 
 
+# Symmetric int8 KV quantization per group of KV_QUANT_GROUP channels, with
+# f16 scales: 0.5625x of the bf16 cache footprint at Dh 128.
+KV_QUANT_GROUP = 16
+
+
+def _kv_groups(dh: int) -> int:
+    return KV_QUANT_GROUP if dh % KV_QUANT_GROUP == 0 else dh
+
+
+def quantize_kv(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Group-wise symmetric int8 quantization of (B, S, Hkv, Dh).
+
+    Returns (int8 payload (B, S, Hkv, Dh), f16 scales (B, S, Hkv, Dh/G)).
+    As in the reference, the f32 scale quantizes and only its f16 rounding
+    is stored (``dequantize_kv`` multiplies by that); ``torch.round``
+    rounds half to even, as ``jnp.round`` does.
+    """
+    g = _kv_groups(t.shape[-1])
+    tg = t.to(torch.float32).reshape(*t.shape[:-1], -1, g)
+    scale = tg.abs().amax(dim=-1) / 127.0 + 1e-8
+    q = torch.clamp(torch.round(tg / scale[..., None]), -127, 127)
+    return q.reshape(t.shape).to(torch.int8), scale.to(torch.float16)
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    g = _kv_groups(q.shape[-1])
+    qg = q.to(torch.float32).reshape(*q.shape[:-1], -1, g)
+    return (qg * scale.to(torch.float32)[..., None]).reshape(q.shape)
+
+
 def decode_attention(cfg: ArchConfig, params, x: torch.Tensor, pos: int, kv_cache):
     """Single-token decode attention with an explicit validity mask.
 
     x: (B, 1, d); pos: the current absolute position (== tokens so far).
-    kv_cache: (k, v), each (B, S_max, Hkv, Dh), written in place at ``pos``
-    (the reference returns updated copies; in place saves a cache copy per
-    layer and step) and returned.  Positions > pos are masked.  For
-    sliding-window configs the cache holds only the window and is written at
-    ``pos % S_max`` (ring buffer).
+    kv_cache: (k, v), each (B, S_max, Hkv, Dh) -- or, with
+    ``cfg.kv_cache_quant``, (k_i8, v_i8, k_scale, v_scale) with int8
+    payloads and (B, S_max, Hkv, Dh/KV_QUANT_GROUP) f16 group scales --
+    written in place at ``pos`` (the reference returns updated copies; in
+    place saves a cache copy per layer and step) and returned in that
+    order.  Positions > pos are masked.  For sliding-window configs the
+    cache holds only the window and is written at ``pos % S_max`` (ring
+    buffer).
     """
-    if cfg.kv_cache_quant:
-        raise NotImplementedError("the int8 KV cache (kv_cache_quant) is not ported yet")
     b, s, _ = x.shape
     h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    ck, cv = kv_cache
+    ck, cv = kv_cache[:2]
     s_max = ck.shape[1]
     ring = cfg.sliding_window > 0
 
     q, k, v = _qkv(cfg, params, x)
     posv = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    if cfg.rope_kind == "mrope":
+        posv = posv[..., None].expand(b, 1, 3)
     q = rotate(cfg, q, posv)
     k = rotate(cfg, k, posv)
 
     # lax.dynamic_update_slice clamps its start index into the array.
     slot = pos % s_max if ring else min(pos, s_max - 1)
-    ck[:, slot:slot + 1] = k.to(ck.dtype)
-    cv[:, slot:slot + 1] = v.to(cv.dtype)
+    at = slice(slot, slot + 1)
+    if cfg.kv_cache_quant:
+        ck_s, cv_s = kv_cache[2:]
+        ck[:, at], ck_s[:, at] = quantize_kv(k)
+        cv[:, at], cv_s[:, at] = quantize_kv(v)
+        kk = dequantize_kv(ck, ck_s)
+        vv = dequantize_kv(cv, cv_s)
+        # The current token's k and v are still at hand in full precision;
+        # only past positions pay the int8 round trip.
+        kk[:, at] = k.to(torch.float32)
+        vv[:, at] = v.to(torch.float32)
+    else:
+        ck[:, at] = k.to(ck.dtype)
+        cv[:, at] = v.to(cv.dtype)
+        kk, vv = ck.to(torch.float32), cv.to(torch.float32)
 
     rep = h // hk
-    kk = ck.to(torch.float32).repeat_interleave(rep, dim=2)
-    vv = cv.to(torch.float32).repeat_interleave(rep, dim=2)
+    kk = kk.repeat_interleave(rep, dim=2)
+    vv = vv.repeat_interleave(rep, dim=2)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32) * dh ** -0.5, kk)
     kpos = torch.arange(s_max, device=x.device)
     valid = kpos < min(pos + 1, s_max) if ring else kpos <= min(pos, s_max - 1)
     scores = torch.where(valid[None, None, None], scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p, vv).to(x.dtype)
-    return out.reshape(b, s, h * dh) @ params["wo"], (ck, cv)
+    return out.reshape(b, s, h * dh) @ params["wo"], tuple(kv_cache)
 
 
 # ---------------------------------------------------------------------------

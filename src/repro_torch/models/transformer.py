@@ -12,13 +12,16 @@ Jamba at full depth (a pattern of 8 layers, ``n_rep`` 4) runs its four
 first-position Mamba layers first, then the four of the second position,
 and so on, as the reference does.
 
-Ported: attention (``attn``), RWKV-6 (``rwkv6`` mixer, ``rwkv_ffn``) and
-Mamba (``mamba``) mixers; dense and MoE (``moe``, with shared experts,
-``first_dense_layers`` and ``moe_every``) FFNs; token inputs, RoPE, sliding
-windows.  ``build`` refuses what is not ported yet: M-RoPE and image
-embeddings (Qwen2-VL), audio frame inputs (HuBERT) and the int8 KV cache.
-``forward`` returns logits, and with ``return_aux`` the MoE layers' summed
-load-balance loss; the losses and training come later.
+Ported: attention (``attn``, causal or not), RWKV-6 (``rwkv6`` mixer,
+``rwkv_ffn``) and Mamba (``mamba``) mixers; dense and MoE (``moe``, with
+shared experts, ``first_dense_layers`` and ``moe_every``) FFNs; token
+inputs, image embeddings spliced over the first token slots (Qwen2-VL),
+audio frame inputs (HuBERT, ``embed_inputs=False``: no ``embed`` and no
+decode step); RoPE, M-RoPE, sliding windows; the bf16 and the int8
+(``kv_cache_quant``) KV caches.  ``build`` takes every config in
+``repro_torch.configs``.  ``forward`` returns logits, and with
+``return_aux`` the MoE layers' summed load-balance loss; the losses and
+training come later.
 """
 from __future__ import annotations
 
@@ -31,8 +34,8 @@ from . import mamba as mamba_mod
 from . import moe as moe_mod
 from . import rwkv6 as rwkv_mod
 from .config import ArchConfig
-from .layers import attention, decode_attention, dtype_of, ffn, init_attn, init_ffn, \
-    normal, rmsnorm
+from .layers import _kv_groups, attention, decode_attention, dtype_of, ffn, init_attn, \
+    init_ffn, normal, rmsnorm
 
 
 # ---------------------------------------------------------------------------
@@ -60,21 +63,7 @@ class Model(NamedTuple):
     n_rep: int
 
 
-def _missing_parts(cfg: ArchConfig) -> List[str]:
-    missing = []
-    if cfg.rope_kind == "mrope" or cfg.vlm_image_tokens:
-        missing.append("mrope and image embeddings (VLM inputs)")
-    if not cfg.embed_inputs:
-        missing.append("audio inputs (frame embeddings)")
-    if cfg.kv_cache_quant:
-        missing.append("kv_cache_quant (int8 KV cache)")
-    return missing
-
-
 def build(cfg: ArchConfig) -> Model:
-    missing = _missing_parts(cfg)
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: not ported yet: {', '.join(missing)}")
     prefix, pattern, n_rep = plan_groups(cfg)
     return Model(cfg=cfg, prefix=prefix, pattern=pattern, n_rep=n_rep)
 
@@ -184,13 +173,17 @@ def decode_layer(cfg: ArchConfig, plan, params, x: torch.Tensor, pos: int, cache
 def init_params(model: Model, seed: int = 0, device="cuda") -> Dict[str, Any]:
     """Random weights from a ``torch.Generator`` seeded with ``seed``, drawn
     on ``device`` in the config's dtype.  Not the reference's values (those
-    are threefry draws): ``convert.model_params`` carries them across."""
+    are threefry draws): ``convert.model_params`` carries them across.
+    A config with frame inputs (``embed_inputs=False``) has no ``embed``."""
     cfg = model.cfg
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     d, v = cfg.d_model, cfg.vocab
     dt = dtype_of(cfg)
-    params: Dict[str, Any] = {"embed": normal(gen, (v, d), d ** -0.5, dt), "layers": []}
+    params: Dict[str, Any] = {}
+    if cfg.embed_inputs:
+        params["embed"] = normal(gen, (v, d), d ** -0.5, dt)
+    params["layers"] = []
     for plan in layer_plans(model):
         p = init_layer(gen, cfg, plan)
         _patch_rwkv_lns(cfg, p, plan)
@@ -206,16 +199,29 @@ def init_params(model: Model, seed: int = 0, device="cuda") -> Dict[str, Any]:
 
 
 def embed_inputs(model: Model, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    if "image_embeds" in batch:
-        raise NotImplementedError("image embeddings (VLM inputs) are not ported yet")
-    return params["embed"][batch["tokens"]]
+    """(B, S, d) in the model dtype: the frames ``batch["inputs"]`` (audio),
+    or the token embeddings with, for a VLM given ``image_embeds`` (B, n, d),
+    the first n token slots replaced by the image embeddings."""
+    cfg = model.cfg
+    if not cfg.embed_inputs:
+        return batch["inputs"].to(dtype_of(cfg))
+    x = params["embed"][batch["tokens"]]
+    if cfg.vlm_image_tokens and "image_embeds" in batch:
+        img = batch["image_embeds"].to(x.dtype)
+        x = torch.cat([img, x[:, img.shape[1]:]], dim=1)
+    return x
 
 
 def positions_for(model: Model, batch: Dict[str, torch.Tensor], s: int,
                   device=None) -> torch.Tensor:
+    """``batch["positions"]``, else ``arange(s)`` as (1, S), or (1, S, 3)
+    (the same id on each axis) under M-RoPE."""
     if "positions" in batch:
         return batch["positions"]
-    return torch.arange(s, device=device)[None]
+    pos = torch.arange(s, device=device)[None]
+    if model.cfg.rope_kind == "mrope":
+        pos = pos[..., None].expand(1, s, 3)
+    return pos
 
 
 def _backbone(model: Model, params, batch) -> Tuple[torch.Tensor, List[torch.Tensor]]:
@@ -264,6 +270,12 @@ def init_cache_entry(cfg: ArchConfig, plan, batch: int, s_max: int, device="cuda
     if mixer == "attn":
         s_alloc = min(s_max, cfg.sliding_window) if cfg.sliding_window else s_max
         shape = (batch, s_alloc, cfg.n_kv_heads, cfg.head_dim)
+        if cfg.kv_cache_quant:
+            sshape = shape[:-1] + (cfg.head_dim // _kv_groups(cfg.head_dim),)
+            return (torch.zeros(shape, dtype=torch.int8, device=dev),
+                    torch.zeros(shape, dtype=torch.int8, device=dev),
+                    torch.zeros(sshape, dtype=torch.float16, device=dev),
+                    torch.zeros(sshape, dtype=torch.float16, device=dev))
         return (torch.zeros(shape, dtype=dt, device=dev),
                 torch.zeros(shape, dtype=dt, device=dev))
     if mixer == "mamba":
@@ -284,8 +296,11 @@ def serve_step(model: Model, params, cache: List, tokens: torch.Tensor, pos: int
     """One decode step: tokens (B, 1) -> (logits (B, 1, V), new_cache).
 
     ``pos`` is the current absolute position (== tokens so far).  KV caches
-    are updated in place (``layers.decode_attention``).
+    are updated in place (``layers.decode_attention``).  An encoder-only
+    config (frame inputs) has no decode step: ``ValueError``.
     """
+    if not model.cfg.embed_inputs:
+        raise ValueError("encoder-only archs have no decode step")
     x = params["embed"][tokens]
     new_cache = []
     for plan, p, c in zip(layer_plans(model), params["layers"], cache):

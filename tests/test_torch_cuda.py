@@ -1023,3 +1023,116 @@ def test_mamba_block_and_decode_on_card_match_cpu(cuda):
         o, state = mamba_mod.decode_step(cfg, params, x[:, t:t + 1], state)
         outs.append(o)
     _close_to_max(torch.cat(outs, 1), pre.cpu(), MODEL_RTOL)
+
+
+# ---------------------------------------------------------------------------
+# M-RoPE and image inputs (Qwen2-VL), frame inputs (HuBERT), the int8 KV
+# cache, the CNN: card against the port's CPU route.
+# ---------------------------------------------------------------------------
+
+from repro_torch.fl import nets  # noqa: E402
+from repro_torch.models import layers as layers_mod  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+
+# Logits of a reduced model in f32, card against CPU, relative to the
+# largest entry: the flash kernel against the chunked scan, matmuls in
+# another order.
+LOGITS_RTOL = 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,causal", [((2, 300, 300, 16, 16, 80), False),
+                                          ((1, 300, 450, 4, 4, 80), False),
+                                          ((2, 200, 200, 4, 2, 80), True)])
+def test_flash_attention_kernel_at_head_dim_80(cuda, shape, causal, dtype):
+    """HuBERT's head size: the f32 kernel's 5-column case, and the bf16
+    kernel's second 64-column panel holding 16 columns (TMA zero-fills the
+    rest)."""
+    q, k, v = _flash_inputs(*shape, dtype=dtype, device=cuda, seed=sum(shape) + 2)
+    kw = dict(causal=causal, window=0, scale=80 ** -0.5)
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_attn_close(got, q, k, v, **kw)
+
+
+def test_quantize_kv_on_card_equals_cpu(cuda):
+    """Payloads and f16 scale bits equal, Dh 128 and Dh 40."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    for shape in ((4, 512, 8, 128), (2, 33, 4, 40)):
+        x = 3 * torch.randn(shape, generator=gen, device=cuda)
+        q, s = layers_mod.quantize_kv(x)
+        q_cpu, s_cpu = layers_mod.quantize_kv(x.cpu())
+        assert torch.equal(q.cpu(), q_cpu)
+        assert torch.equal(s.cpu().view(torch.int16), s_cpu.view(torch.int16))
+        assert torch.equal(layers_mod.dequantize_kv(q, s).cpu(),
+                           layers_mod.dequantize_kv(q_cpu, s_cpu))
+
+
+# M-RoPE card vs CPU, relative L2: each device's pow, cos and sin round
+# differently, and the angles reach thousands of radians at prefill
+# positions, where an ulp of the inverse frequency moves the angle by ~1e-4.
+MROPE_REL_L2 = 1e-6
+
+
+def _grid_positions(b, s, n_img, side, device):
+    """Qwen2-VL's ids: patch i < n_img at (0, i // side, i % side), text
+    token j at t = h = w = side + j - n_img."""
+    i = torch.arange(s, device=device)
+    text = side + i - n_img
+    return torch.stack([torch.where(i < n_img, 0, text), torch.where(i < n_img, i // side, text),
+                        torch.where(i < n_img, i % side, text)], -1)[None].expand(b, s, 3)
+
+
+def test_apply_mrope_on_card_matches_cpu(cuda):
+    """Qwen2-VL's prefill positions: 1024 patches on a 32 x 32 grid, then text."""
+    x = torch.randn(2, 4096, 8, 128, generator=torch.Generator(device=cuda).manual_seed(7),
+                    device=cuda)
+    pos = _grid_positions(2, 4096, 1024, 32, cuda)
+    got = layers_mod.apply_mrope(x, pos, 1e6, (16, 24, 24)).cpu()
+    want = layers_mod.apply_mrope(x.cpu(), pos.cpu(), 1e6, (16, 24, 24))
+    assert float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)) \
+        <= MROPE_REL_L2
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "hubert-xlarge"])
+def test_multimodal_forward_on_card_matches_cpu(cuda, arch):
+    """Reduced Qwen2-VL (16 image embeddings, grid positions) and HuBERT
+    (frames, non-causal) in f32: the card's flash kernel against the CPU."""
+    cfg = model_configs.get(arch).reduced()
+    model = T.build(cfg)
+    params = T.init_params(model, seed=0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    if cfg.embed_inputs:
+        n = cfg.vlm_image_tokens
+        pos = _grid_positions(2, 40, n, 4, cuda)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (2, 40), generator=gen, device=cuda),
+                 "image_embeds": 0.02 * torch.randn(2, n, cfg.d_model, generator=gen,
+                                                    device=cuda),
+                 "positions": pos}
+    else:
+        batch = {"inputs": 0.02 * torch.randn(2, 40, cfg.d_model, generator=gen, device=cuda)}
+    before = ops.flash_attention.launches
+    got = T.forward(model, params, batch)
+    assert ops.flash_attention.launches == before + cfg.n_layers
+    want = T.forward(model, _to_cpu(params), _to_cpu(batch))
+    _close_to_max(got, want, LOGITS_RTOL)
+
+
+def test_cnn_on_card_matches_cpu(cuda):
+    """TF32 stays off: cuDNN's f32 convolutions against the CPU's."""
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    net = nets.make_cnn(hw=14, channels=3, signed_constant=False, device=cuda)
+    weights = net.init(prng.PRNGKey(9, device=cuda))
+    x = torch.randn(64, 14, 14, 3, generator=torch.Generator(device=cuda).manual_seed(9),
+                    device=cuda)
+    got = net(x)
+    want = nets.make_cnn(hw=14, channels=3, device="cpu")(x.cpu(), [w.cpu() for w in weights])
+    _close_to_max(got, want, 1e-5)

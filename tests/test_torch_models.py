@@ -200,13 +200,20 @@ def test_configs_are_the_reference(arch):
     assert C.ALIASES == RC.ALIASES and C.SHAPES == RC.SHAPES
 
 
-@pytest.mark.parametrize("arch,part", [("qwen2-vl-72b", "mrope"),
-                                       ("hubert-xlarge", "audio")])
-def test_build_refuses_unported_parts(arch, part):
-    with pytest.raises(NotImplementedError, match=part):
-        T.build(C.get(arch))
-    with pytest.raises(NotImplementedError, match="kv_cache_quant"):
-        T.build(dataclasses.replace(C.get("qwen3-1.7b"), kv_cache_quant=True))
+@pytest.mark.parametrize("arch", list(C.all_configs()))
+def test_build_accepts_every_config(arch):
+    """Every config the repo ships, as the reference's ``plan_groups``
+    factors it; ``layer_plans`` runs the prefix, then each pattern
+    position's repetitions."""
+    mine = C.all_configs()[arch]
+    assert dataclasses.asdict(mine) == dataclasses.asdict(RC.all_configs()[arch])
+    model, ref = T.build(mine), JT.build(RC.get(arch))
+    assert (model.prefix, model.pattern, model.n_rep) == JT.plan_groups(RC.get(arch))
+    assert (model.prefix, model.pattern, model.n_rep) == (ref.prefix, ref.pattern, ref.n_rep)
+    assert T.layer_plans(model) == list(ref.prefix) + [
+        p for p in ref.pattern for _ in range(ref.n_rep)]
+    assert len(T.layer_plans(model)) == mine.n_layers
+    T.build(dataclasses.replace(mine, kv_cache_quant=True))
 
 
 # ---------------------------------------------------------------------------
