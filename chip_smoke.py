@@ -164,7 +164,24 @@ Phases (each one fails the run with a non-zero exit; nothing is swallowed):
    request's first step whose bf16 top-2 margin is not above twice the
    logit difference; at least one decisive step), the cache bytes (ratio
    0.5625) and one timed ``serve_step`` of each cache at batch 4, S_max
-   8192, position 4000.
+   8192, position 4000;
+15. (run after phase 14) training: the reduced ``qwen3-1.7b`` and
+   ``rwkv6-1.6b`` in f32 (TF32 off), one ``launch.train.Trainer`` step on
+   the card (counts set to 0 just before and read just after: one launch of
+   the mixer's kernel a layer), the loss and every gradient leaf through the
+   two kernels' autograd Functions (kernel forward, plain backward) card
+   against CPU, and the stochastic sign's bits card against CPU (equal on
+   equal probabilities; from the card's gradients equal but where the
+   uniform lies within rounding of the probability); ``qwen3-1.7b`` at full
+   width and depth as its config stands (bf16, remat, Adam), batch 4 x seq
+   1024 in 2 microbatches, 3 steps with the stochastic sign and 3 without:
+   losses finite, the parameters f32 after each step (the reference's
+   promotion), 112 flash launches a step (28 layers, forward and remat's
+   recompute, 2 microbatches), ms a step (bf16 step 1, f32 steady), tokens/s,
+   the share of 989 (step 1) and 67 (steady) TFLOP/s that 6 N D makes, peak
+   memory, a profiled f32 step and a profiled bf16 first step (device busy
+   share, top operations); then
+   ``repro_torch.train_100m`` for 50 steps on the card: the loss falls.
 
 The second-to-last line is a JSON object ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -212,12 +229,15 @@ from repro_torch.kernels import bernoulli_kl, build, mrc_weights, ops  # noqa: E
 from repro_torch.kernels import flash_attn, rwkv_chunk  # noqa: E402
 from repro_torch.kernels import segment_logw as seg_kernel  # noqa: E402
 from repro_torch.kernels.segment_logw import segment_logw_ref  # noqa: E402
-from repro_torch import configs  # noqa: E402
+from repro_torch import configs, train_100m  # noqa: E402
+from repro_torch.data import batches_for  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.serve import Request, Server  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 ROUNDS = 5
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
@@ -279,6 +299,19 @@ VLM_CUT, VLM_GRID, VLM_XCHECK_LAYERS = 8, 32, 2
 AUDIO_XCHECK_LAYERS, AUDIO_XCHECK_SEQ = 4, 256
 KV_QUANT_BATCH, KV_QUANT_SEQ, KV_QUANT_POS = 4, 8192, 4000
 MROPE_REL_L2 = 1e-6
+# Phase 15: training.  qwen3-1.7b as its config stands (28 layers, d 2048,
+# vocab 151936, bf16, remat) under Adam, batch 4 x seq 1024 in 2
+# microbatches with kv_chunk = seq (the CLI's), 3 steps with the stochastic
+# sign and 3 without; the reduced qwen3 and rwkv6 in f32 card vs CPU (72
+# tokens cross a 64-token RWKV chunk): gradients through the same plain
+# backward in two libraries' summation orders, and sign bits equal but where
+# the uniform lies within SIGN_TIE of its probability (K = mean |g| sums in
+# two orders); the 100M example for 50 steps.
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB, TRAIN_STEPS, TRAIN_LR = \
+    "qwen3-1.7b", 4, 1024, 2, 3, 3e-4
+TRAIN_CHECK, TRAIN_CHECK_SEQ = ("qwen3-1.7b", "rwkv6-1.6b"), 72
+GRAD_RTOL, SIGN_TIE = 1e-5, 1e-6
+TRAIN_100M_STEPS, TRAIN_100M_BATCH, TRAIN_100M_SEQ = 50, 8, 256
 KERNELS = ("mrc_logw", "mrc_fixed_encode", "bernoulli_kl", "bernoulli_kl_total",
            "bernoulli_kl_profile", "segment_logw", "segment_mrc_encode", "segment_select",
            "flash_attention", "rwkv_time_mix")
@@ -1972,15 +2005,17 @@ def assert_model_close(name, got, want, mag):
     return err.max().item()
 
 
-def check_flash(shape, dtype, causal, window, seed, timed, skv=None):
-    """``shape`` is (B, Sq, H, Hkv, Dh); the keys number ``skv`` (Sq if None)."""
+def check_flash(shape, dtype, causal, window, seed, timed, skv=None,
+                kv_chunk=flash_attn.KV_CHUNK):
+    """``shape`` is (B, Sq, H, Hkv, Dh); the keys number ``skv`` (Sq if None);
+    ``kv_chunk`` is the plain version's (and the wrapper's CPU route's)."""
     b, s, h, hkv, dh = shape
     skv = s if skv is None else skv
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn(b, s, h, dh, generator=gen, device="cuda").to(dtype)
     k = torch.randn(b, skv, hkv, dh, generator=gen, device="cuda").to(dtype)
     v = torch.randn(b, skv, hkv, dh, generator=gen, device="cuda").to(dtype)
-    kw = dict(causal=causal, window=window, scale=dh ** -0.5)
+    kw = dict(causal=causal, window=window, scale=dh ** -0.5, kv_chunk=kv_chunk)
     got = launched_once(ops.flash_attention, q, k, v, **kw)
     want = flash_attn.flash_attention_ref(q, k, v, **kw)
     mag = flash_attn.flash_attention_ref(q.float(), k.float(), v.float().abs(), **kw)
@@ -2071,6 +2106,19 @@ def phase_model_kernels():
             ((2, 90, 4, 1, 40), False, 0, 250), ((1, 1000, 16, 8, 128), True, 256, None),
             ((1, 4095, 16, 8, 128), True, 0, None)]):
         check_flash(shape, torch.bfloat16, causal, window, 20 + i, timed=False, skv=skv)
+    # Phase 15's training attention, causal, at the trainer's kv_chunk (the
+    # sequence): qwen3-1.7b's microbatch in bf16 (step 1, the wgmma kernel)
+    # and f32 (every later step: Adam promotes the parameters), and
+    # train_100m's in f32.
+    c, m = configs.get(TRAIN_ARCH), train_100m.CFG_100M
+    for shape, dtype, seq, seed in [
+            ((TRAIN_BATCH // TRAIN_MB, TRAIN_SEQ, c.n_heads, c.n_kv_heads, c.head_dim),
+             torch.bfloat16, TRAIN_SEQ, 50),
+            ((TRAIN_BATCH // TRAIN_MB, TRAIN_SEQ, c.n_heads, c.n_kv_heads, c.head_dim),
+             torch.float32, TRAIN_SEQ, 51),
+            ((TRAIN_100M_BATCH, TRAIN_100M_SEQ, m.n_heads, m.n_kv_heads, m.head_dim),
+             torch.float32, TRAIN_100M_SEQ, 52)]:
+        check_flash(shape, dtype, True, 0, seed, timed=False, kv_chunk=seq)
     rows["rwkv"] = check_rwkv((PREFILL_BATCH, PREFILL_SEQ, 32, 64), 5, timed=True)
     check_rwkv((1, 1000, 32, 64), 6, timed=False)
     check_rwkv((2, 4096, 32, 64), 7, timed=False, strong=True)
@@ -2757,6 +2805,237 @@ def phase_multimodal_models():
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: training.
+# ---------------------------------------------------------------------------
+
+
+def stacked_init(cfg, seed: int, device):
+    """A config's seeded weights in the trainer's (the reference's stacked) layout."""
+    model = transformer.build(cfg)
+    return model, convert.stack_model_params(model, transformer.init_params(model, seed, device))
+
+
+def loss_and_grads(model, tree, batch, device):
+    """The training loss and its gradients (``tree_leaves`` order) at
+    ``tree`` moved to ``device``, as the train step takes them."""
+    tree = tree_map(lambda t: t.to(device).detach().requires_grad_(), tree)
+    loss = train_mod.make_loss_fn(model, kv_chunk=TRAIN_CHECK_SEQ)(
+        tree, train_mod.batch_tensors(batch, device))
+    return loss.detach(), torch.autograd.grad(loss, tree_leaves(tree))
+
+
+def phase_train_vs_cpu():
+    """The reduced qwen3 and rwkv6, f32 (TF32 off): one ``Trainer`` step on
+    the card (counts set to 0 just before, read just after: one launch of
+    the mixer's kernel a layer); the loss and every gradient leaf (through
+    the two Functions: the kernel forward, the plain backward) card vs CPU;
+    the stochastic sign's bits card vs CPU on the same gradients."""
+    out = {}
+    for arch in TRAIN_CHECK:
+        cfg = configs.get(arch).reduced()
+        model, tree = stacked_init(cfg, 21, "cpu")
+        kernel = MODELS[arch]
+        batch = next(batches_for(cfg, 2, TRAIN_CHECK_SEQ, seed=5, n=1))
+        tr = train_mod.Trainer(cfg, lr=1e-3, kv_chunk=TRAIN_CHECK_SEQ, device="cuda",
+                               grad_compression="stochastic_sign",
+                               params=tree_map(lambda t: t.cuda(), tree))
+        reset_counts()
+        loss = tr.step(batch)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        out[f"{arch} (reduced) train step"] = launches
+        if launches[kernel] != cfg.n_layers or not math.isfinite(loss):
+            raise AssertionError(f"train step {arch} (reduced): loss {loss}, launches "
+                                 f"{launches}, expected {cfg.n_layers} of {kernel}")
+        loss_card, g_card = loss_and_grads(model, tree, batch, "cuda")
+        loss_cpu, g_cpu = loss_and_grads(model, tree, batch, "cpu")
+        rel = max(float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                  for a, b in zip(g_card, g_cpu))
+        loss_rel = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
+        keys = prng.split(prng.fold_in(prng.PRNGKey(7, device="cuda"), 1), len(g_card))
+        flips = near = n = 0
+        for i, g in enumerate(g_card):
+            card = train_mod._stochastic_sign_compress(g, keys[i]).cpu()
+            host = train_mod._stochastic_sign_compress(g.cpu(), keys[i].cpu())
+            q = torch.sigmoid(g.cpu() / (g.cpu().abs().mean() + 1e-12))
+            if not torch.equal(train_mod._bernoulli(keys[i], q.cuda()).cpu(),
+                               train_mod._bernoulli(keys[i].cpu(), q)):
+                raise AssertionError(f"{arch}: the sign draw differs card vs CPU on equal "
+                                     f"probabilities (leaf {i})")
+            # K = mean |g| sums in two orders: a sign may differ only where the
+            # uniform lies within rounding of the probability
+            tie = (prng.uniform(keys[i].cpu(), g.shape) - q).abs() <= SIGN_TIE
+            flip = torch.sign(card) != torch.sign(host)
+            if bool((flip & ~tie).any()):
+                raise AssertionError(f"{arch}: sign bits card vs CPU differ away from ties "
+                                     f"(leaf {i})")
+            flips, near, n = flips + int(flip.sum()), near + int(tie.sum()), n + g.numel()
+        log(f"train {arch} (reduced, f32, (2, {TRAIN_CHECK_SEQ})): Trainer step on the card "
+            f"loss {loss:.6f}, launches {launches[kernel]} of {kernel}; card vs CPU: loss "
+            f"relative {loss_rel:.3e}, gradients max|diff| / max|g| per leaf {rel:.3e} (bound "
+            f"{GRAD_RTOL}); sign bits of {n} entries: {flips} differ, {near} within "
+            f"{SIGN_TIE} of their probability; the draw equal on equal probabilities")
+        if not rel <= GRAD_RTOL or not loss_rel <= GRAD_RTOL:
+            raise AssertionError(f"train {arch} card vs CPU: gradients {rel}, loss {loss_rel}")
+        del tr, g_card
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_full_width():
+    """qwen3-1.7b as its config stands (bf16, remat, Adam), batch 4 x seq
+    1024 in 2 microbatches: 3 steps with the stochastic sign, then 3
+    without and one more profiled, then a bf16 first step profiled.  Per
+    step: the loss (finite), ms (synchronised host clock), flash launches
+    (counts set to 0 just before the step), the parameters' dtype after
+    it; per run the peak memory."""
+    cfg = configs.get(TRAIN_ARCH)
+    n_params, tokens = cfg.params_count(), TRAIN_BATCH * TRAIN_SEQ
+    flops = 6 * n_params * tokens
+    batches = list(batches_for(cfg, TRAIN_BATCH, TRAIN_SEQ, n=TRAIN_STEPS))
+    expect = 2 * TRAIN_MB * cfg.n_layers      # forward + remat's recompute, per microbatch
+    runs, launches = {}, {k: 0 for k in KERNELS}
+    for comp in ("stochastic_sign", None):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = train_mod.Trainer(cfg, lr=TRAIN_LR, microbatches=TRAIN_MB, kv_chunk=TRAIN_SEQ,
+                               grad_compression=comp, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        steps = []
+        for b in batches:
+            retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+            reset_counts()
+            t0 = time.perf_counter()
+            loss = tr.step(b)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            counts = read_counts()
+            for k, v in counts.items():
+                launches[k] += v
+            # the caching allocator's retries (cached blocks freed, cudaMalloc
+            # again) are a cost of the memory's layout, not of the arithmetic
+            steps.append({"loss": loss, "ms": ms, "flash": counts["flash_attention"],
+                          "dtype": str(tr.params["head"].dtype).split(".")[1],
+                          "alloc_retries": torch.cuda.memory_stats().get(
+                              "num_alloc_retries", 0) - retries})
+        peak = torch.cuda.max_memory_allocated()
+        label = comp or "no compression"
+        log(f"train {TRAIN_ARCH} {cfg.dtype}, remat, Adam, ({TRAIN_BATCH}, {TRAIN_SEQ}) in "
+            f"{TRAIN_MB} microbatches, {label}: init {t_init:.1f} s; steps "
+            f"{json.dumps(steps)}; peak device memory {peak / 2**20:.1f} MiB")
+        if any(not math.isfinite(s["loss"]) or s["flash"] != expect for s in steps) \
+                or [s["dtype"] for s in steps] != ["float32"] * len(steps):
+            raise AssertionError(f"train {TRAIN_ARCH} {label}: losses finite, {expect} flash "
+                                 f"launches a step and f32 parameters after each step "
+                                 f"expected; got {steps}")
+        step1, steady = steps[0]["ms"], float(np.median([s["ms"] for s in steps[1:]]))
+        runs[label] = {"steps": steps, "peak_mib": peak / 2**20, "step1_ms": step1,
+                       "steady_ms": steady, "tokens_per_s_steady": tokens / steady * 1e3,
+                       "mfu_step1_bf16": flops / (step1 / 1e3) / BF16_FLOPS_PER_S,
+                       "mfu_steady_f32": flops / (steady / 1e3) / FP32_FLOPS_PER_S}
+        if comp is None:
+            runs[label].update(profile_step(tr, batches[0], steady, "f32 step"))
+            runs["parts"] = step_parts(cfg, tr.params)
+        log(f"  {label}: step 1 (bf16) {step1:.1f} ms, steady (f32) {steady:.1f} ms, "
+            f"{tokens / steady * 1e3:.0f} tokens/s; 6 N D = {flops:.3e} flop (N "
+            f"{n_params}): {runs[label]['mfu_step1_bf16']:.4f} of 989 TFLOP/s at step 1, "
+            f"{runs[label]['mfu_steady_f32']:.4f} of 67 TFLOP/s steady")
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the bf16 first step profiled on a fresh trainer (the runs time it unprofiled)
+    tr = train_mod.Trainer(cfg, lr=TRAIN_LR, microbatches=TRAIN_MB, kv_chunk=TRAIN_SEQ,
+                           seed=0, device="cuda")
+    runs["bf16 step 1"] = profile_step(tr, batches[0], runs["no compression"]["step1_ms"],
+                                       "bf16 step 1")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs, launches
+
+
+def profile_step(tr, batch, wall_ms: float, label: str) -> dict:
+    """One train step under ``torch.profiler``: device busy ms, its share of
+    the unprofiled step's ``wall_ms``, and the top device operations."""
+    busy, events = device_profile(lambda: tr.step(batch))
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    out = {"busy_ms": busy, "busy_share": busy / wall_ms,
+           "top": [(round(e.self_device_time_total / 1e3, 3), e.count, e.key[:80])
+                   for e in top]}
+    log(f"  profiled {label}: device busy {busy:.3f} ms = {busy / wall_ms:.4f} of the "
+        f"unprofiled step, {sum(e.count for e in events)} kernels")
+    for ms, count, key in out["top"]:
+        log(f"    {ms:10.3f} ms  x{count:<6d} {key}")
+    return out
+
+
+def step_parts(cfg, params):
+    """The f32 step's parts timed alone (CUDA events): the sign compression
+    of every leaf (on the weights as stand-in gradients: the threefry's cost
+    does not depend on the values), and one attention layer's flash forward
+    and plain backward at the training shape, with the launches a step."""
+    leaves = tree_leaves(params)
+    keys = prng.split(prng.PRNGKey(3, device="cuda"), len(leaves))
+    sign_ms = cuda_time_ms(lambda: [train_mod._stochastic_sign_compress(p, keys[i])
+                                    for i, p in enumerate(leaves)], reps=1, warmup=1)
+    b, s, h, hk, dh = TRAIN_BATCH // TRAIN_MB, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = (torch.randn(b, s, n, dh, generator=gen, device="cuda").requires_grad_()
+               for n in (h, hk, hk))
+    kw = dict(causal=True, scale=dh ** -0.5, kv_chunk=TRAIN_SEQ)
+    dout = torch.randn(b, s, h, dh, generator=gen, device="cuda")
+    with torch.no_grad():
+        fwd_ms = cuda_time_ms(lambda: ops.flash_attention(q, k, v, **kw), reps=10)
+    out = ops.flash_attention(q, k, v, **kw)
+    bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(out, (q, k, v), dout,
+                                                      retain_graph=True), reps=5)
+    n_fwd, n_bwd = 2 * TRAIN_MB * cfg.n_layers, TRAIN_MB * cfg.n_layers
+    parts = {"sign_compress_ms": sign_ms, "flash_forward_ms": fwd_ms,
+             "attention_backward_ms": bwd_ms,
+             "attention_ms_per_step": n_fwd * fwd_ms + n_bwd * bwd_ms}
+    log(f"  parts of an f32 step, alone: the sign compression of {len(leaves)} leaves "
+        f"({sum(p.numel() for p in leaves)} entries) {sign_ms:.1f} ms; attention at ({b}, {s}, "
+        f"{h}, {hk}, {dh}) f32: flash forward {fwd_ms:.3f} ms x {n_fwd}, the plain backward "
+        f"{bwd_ms:.3f} ms x {n_bwd}: {parts['attention_ms_per_step']:.1f} ms a step")
+    return parts
+
+
+def phase_train():
+    """Phase 15: (a) the Functions and the sign draw card vs CPU at reduced
+    size, (b) qwen3-1.7b trained at full width, (c) ``train_100m`` for 50
+    steps (the loss falls)."""
+    seconds = {}
+    t0 = time.perf_counter()
+    out = phase_train_vs_cpu()
+    seconds["card vs cpu"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    runs, launches = train_full_width()
+    out[f"{TRAIN_ARCH} train"] = launches
+    seconds["full width"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    reset_counts()
+    _, losses = train_100m.run(steps=TRAIN_100M_STEPS, batch=TRAIN_100M_BATCH,
+                               seq=TRAIN_100M_SEQ, device="cuda", log=None)
+    torch.cuda.synchronize()
+    out["train_100m"] = read_counts()
+    seconds["100m"] = round(time.perf_counter() - t0, 1)
+    log(f"train_100m ({train_100m.CFG_100M.params_count() / 1e6:.1f}M, f32): "
+        f"{TRAIN_100M_STEPS} steps in {seconds['100m']} s, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; launches {out['train_100m']}")
+    if not losses[-1] < losses[0] or out["train_100m"]["flash_attention"] != \
+            TRAIN_100M_STEPS * train_100m.CFG_100M.n_layers:
+        raise AssertionError(f"train_100m: loss {losses[0]} -> {losses[-1]}, launches "
+                             f"{out['train_100m']}")
+    log(f"phase 15 seconds: {seconds}")
+    log(f"training: {json.dumps(runs)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2894,11 +3173,14 @@ def main() -> int:
     # Phase 14.
     moe_runs.update(phase_multimodal_models())
     marks.append(time.perf_counter())
+    # Phase 15.
+    moe_runs.update(phase_train())
+    marks.append(time.perf_counter())
     log(f"phase seconds: build and FL phases 2-6 {t_fl - t0:.1f}, model kernels "
         f"{marks[0] - t_fl:.1f}, prefill {marks[1] - marks[0]:.1f}, cross-check "
         f"{marks[2] - marks[1]:.1f}, serve {marks[3] - marks[2]:.1f}, MoE and Jamba "
         f"{marks[4] - marks[3]:.1f}, HuBERT, Qwen2-VL and the int8 cache "
-        f"{marks[5] - marks[4]:.1f}")
+        f"{marks[5] - marks[4]:.1f}, training {marks[6] - marks[5]:.1f}")
 
     def by_path(*names, paths=None):
         return {p: sum(runs[p][0][k] for k in names) for p in (paths or runs)}

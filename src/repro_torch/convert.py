@@ -15,6 +15,7 @@ from repro_torch import resolve_device
 from repro_torch.fl.data import Dataset
 from repro_torch.fl.nets import MLP, flatten_weights
 from repro_torch.fl.tasks import CFLTask, MaskTask
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 def tensor(arr, device="cuda", dtype=torch.float32) -> torch.Tensor:
@@ -74,18 +75,6 @@ def _array_tensor(arr, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(resolve_device(device))
 
 
-def _tree(node, fn):
-    if isinstance(node, dict):
-        return {k: _tree(v, fn) for k, v in node.items()}
-    return fn(node)
-
-
-def _first_leaf(node):
-    while isinstance(node, dict):
-        node = next(iter(node.values()))
-    return node
-
-
 def model_params(cfg, ref_params, device="cuda"):
     """The reference's ``transformer.init_params`` tree (numpy leaves, as
     ``jax.tree.map(np.asarray, params)``) as the port's parameters.
@@ -97,10 +86,10 @@ def model_params(cfg, ref_params, device="cuda"):
     config with frame inputs) gives parameters without one.
     """
     conv = lambda a: _array_tensor(a, device)  # noqa: E731
-    layers = [_tree(p, conv) for p in ref_params["prefix"]]
+    layers = [tree_map(conv, p) for p in ref_params["prefix"]]
     for stacked in ref_params["pattern"]:
-        n_rep = np.asarray(_first_leaf(stacked)).shape[0]
-        layers += [_tree(stacked, lambda a, r=r: conv(np.asarray(a)[r]))
+        n_rep = np.asarray(tree_leaves(stacked)[0]).shape[0]
+        layers += [tree_map(lambda a, r=r: conv(np.asarray(a)[r]), stacked)
                    for r in range(n_rep)]
     if len(layers) != cfg.n_layers:
         raise ValueError(f"{cfg.name}: the tree holds {len(layers)} layers, "
@@ -108,3 +97,57 @@ def model_params(cfg, ref_params, device="cuda"):
     out = {"embed": conv(ref_params["embed"])} if "embed" in ref_params else {}
     return {**out, "layers": layers, "final_norm": conv(ref_params["final_norm"]),
             "head": conv(ref_params["head"])}
+
+
+def stacked_params(ref_params, device="cuda"):
+    """The reference's ``init_params`` tree (numpy leaves) as tensors in its
+    own layout: ``{embed, final_norm, head, prefix, pattern}`` with the
+    pattern leaves stacked over ``n_rep`` -- what the trainer holds."""
+    return tree_map(lambda a: _array_tensor(a, device), ref_params)
+
+
+def stack_model_params(model, params):
+    """The port's parameters (``params["layers"]``, one dict per layer in
+    ``transformer.layer_plans`` order) in the reference's layout, the
+    inverse of ``model_params``: the prefix layers as a list, and for each
+    pattern position one tree whose leaves stack its ``n_rep`` layers along
+    a new axis 0.  The leaves are new tensors (``torch.stack``)."""
+    n_pre, n_rep = len(model.prefix), model.n_rep
+    layers = params["layers"]
+    if len(layers) != n_pre + len(model.pattern) * n_rep:
+        raise ValueError(f"{len(layers)} layers do not make a prefix of {n_pre} and "
+                         f"{len(model.pattern)} pattern positions x {n_rep}")
+
+    def stack(*nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack(*(n[k] for n in nodes)) for k in nodes[0]}
+        return torch.stack(nodes)
+
+    pattern = [stack(*layers[n_pre + j * n_rep:n_pre + (j + 1) * n_rep])
+               for j in range(len(model.pattern))]
+    out = {"embed": params["embed"]} if "embed" in params else {}
+    return {**out, "prefix": list(layers[:n_pre]), "pattern": pattern,
+            "final_norm": params["final_norm"], "head": params["head"]}
+
+
+def layer_views(model, stacked):
+    """The port's ``params["layers"]`` over the reference's stacked tree:
+    the prefix layers as they are, then for each pattern position its
+    ``n_rep`` layers as views ``leaf[r]`` (no copy; autograd carries a
+    layer's gradient back into its slice of the stacked leaf).  Build the
+    views anew for each forward pass."""
+    layers = list(stacked["prefix"])
+    for tree in stacked["pattern"]:
+        # one unbind a leaf: its backward stacks the layers' gradients once,
+        # where n_rep indexings would each add a full-size zero-padded one
+        unbound = [leaf.unbind(0) for leaf in tree_leaves(tree)]
+        layers += [tree_unflatten(tree, [u[r] for u in unbound]) for r in range(model.n_rep)]
+    return layers
+
+
+def params_view(model, stacked):
+    """The port's parameter dict over the reference's stacked tree, as
+    ``transformer.forward`` and the losses take it (``layer_views``)."""
+    out = {"embed": stacked["embed"]} if "embed" in stacked else {}
+    return {**out, "layers": layer_views(model, stacked),
+            "final_norm": stacked["final_norm"], "head": stacked["head"]}

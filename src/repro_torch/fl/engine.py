@@ -78,6 +78,7 @@ from repro_torch.core import mrc
 from repro_torch.core.bernoulli import bern_kl, clip01
 from repro_torch.core.bitmeter import BitMeter
 from repro_torch.kernels import ops
+from repro_torch.tree import tree_map
 from .channels import BlockPlan, RoundContext, ServerUpdate, TAG_COHORT, TAG_TRAIN
 from .data import Dataset
 from .faults import FaultPlan, corrupt_copy, fault_report
@@ -105,14 +106,6 @@ def _cohort_mean(ctx, x: torch.Tensor) -> torch.Tensor:
     return acc / den
 
 
-def _tree_map(fn, *trees):
-    """``fn`` over the leaves of channel states (a tensor, or nested tuples
-    and lists of them; ``()`` for a stateless channel)."""
-    if isinstance(trees[0], (tuple, list)):
-        return type(trees[0])(_tree_map(fn, *sub) for sub in zip(*trees))
-    return fn(*trees)
-
-
 def _carry_rows(prev, new, keep: torch.Tensor):
     """Keep per-client state rows only where ``keep`` (an (n,) bool tensor);
     carry ``prev`` rows.  Leaves whose leading axis is the client axis are
@@ -122,14 +115,14 @@ def _carry_rows(prev, new, keep: torch.Tensor):
         return None
     n = keep.shape[0]
     if prev is None:
-        prev = _tree_map(torch.zeros_like, new)
+        prev = tree_map(torch.zeros_like, new)
 
     def sel(p, q):
         if isinstance(q, torch.Tensor) and q.dim() >= 1 and q.shape[0] == n:
             return torch.where(keep.reshape((n,) + (1,) * (q.dim() - 1)), q, p)
         return q
 
-    return _tree_map(sel, prev, new)
+    return tree_map(sel, prev, new)
 
 
 def _faulted_round_bits(ul_bits, dl_bits, oh_full, rf, n_active, dl_denom):
@@ -504,8 +497,8 @@ class FLEngine:
             "next_round": np.int64(next_round),
             "theta": host(theta),
             "theta_hat": host(theta_hat),
-            "up_state": _tree_map(host, up_s),
-            "dn_state": _tree_map(host, dn_s),
+            "up_state": tree_map(host, up_s),
+            "dn_state": tree_map(host, dn_s),
             "meter": {
                 "uplink_bits": np.float64(meter.uplink_bits),
                 "downlink_bits": np.float64(meter.downlink_bits),
@@ -565,7 +558,7 @@ class FLEngine:
                      "bpp_so_far": float(b)}
                     for r, a, c, b in zip(h["round"], h["acc"], h["cum_bits"], h["bpp"])]
         dev = lambda a: torch.from_numpy(np.array(a)).to(device)  # noqa: E731
-        carry = (_tree_map(dev, state["up_state"]), _tree_map(dev, state["dn_state"]))
+        carry = (tree_map(dev, state["up_state"]), tree_map(dev, state["dn_state"]))
         return (int(np.asarray(state["next_round"])), dev(state["theta"]),
                 dev(state["theta_hat"]), carry, history0)
 
@@ -1035,7 +1028,7 @@ class _FusedProgram:
             m = self.masks
             theta_hat = torch.where(m["recv"][:, None], theta_hat, self.theta_hat)
             up_s = _carry_rows(self.up_s, up_s, m["keep_up"])
-            theta, theta_hat, up_s, dn_s = _tree_map(
+            theta, theta_hat, up_s, dn_s = tree_map(
                 lambda new, old: torch.where(m["ok"], new, old),
                 (theta, theta_hat, up_s, dn_s),
                 (self.theta, self.theta_hat, self.up_s, self.dn_s))

@@ -74,11 +74,13 @@ def chunk_attn_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, window: int = 0,
-                        scale: float = 1.0) -> torch.Tensor:
-    """Plain version of the kernel; shapes as in the module docstring."""
+                        causal: bool = True, window: int = 0, scale: float = 1.0,
+                        kv_chunk: int = KV_CHUNK) -> torch.Tensor:
+    """Plain version of the kernel; shapes as in the module docstring.  KV
+    is scanned in chunks of ``min(kv_chunk, Skv)`` (the reference model's
+    ``attention``; training passes the train step's ``kv_chunk``)."""
     return chunk_attn_scan(q, k, v, causal=causal, window=window, q_offset=0,
-                           kv_chunk=min(KV_CHUNK, k.shape[1]), scale=scale)
+                           kv_chunk=min(kv_chunk, k.shape[1]), scale=scale)
 
 
 @functools.lru_cache(maxsize=None)

@@ -2,7 +2,11 @@
 
 Each wrapper takes the plain PyTorch version for a tensor on the CPU and the
 hand-written CUDA kernel for a tensor on the card; it never falls back from
-one to the other, and any other device raises.  Each has a ``launches``
+one to the other, and any other device raises.  The two model kernels'
+wrappers are differentiable (``torch.autograd.Function``): the kernel or
+plain version runs forward, and the backward differentiates a recomputed
+plain version, as the reference trains through its jnp routes and through
+no Pallas kernel.  Each has a ``launches``
 count that goes up by one where it launches its kernel and nowhere else, so
 a run can show that its main path went through the kernel.
 """
@@ -122,8 +126,8 @@ def segment_select(shared_key: torch.Tensor, indices: torch.Tensor, pc: torch.Te
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0,
-                    scale: float = 1.0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0, scale: float = 1.0,
+                    kv_chunk: int = _fa.KV_CHUNK) -> torch.Tensor:
     """Causal or sliding-window softmax attention; q (B, Sq, H, Dh), k/v
     (B, Skv, Hkv, Dh) with H a multiple of Hkv -> (B, Sq, H, Dh) in q's type.
 
@@ -131,15 +135,40 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     no padding.  f32 or bf16; Dh a multiple of 8 up to 128.  On the card
     the type alone picks the kernel: bf16 runs the wgmma + TMA kernel
     (16-byte-aligned pointers and strides, else ``ValueError``), f32 the
-    CUDA-core kernel.
+    CUDA-core kernel.  The CPU route scans KV in chunks of
+    ``min(kv_chunk, Skv)``, as the reference model's ``attention`` does.
+
+    Differentiable: the forward is the route above, on detached inputs; the
+    backward recomputes the plain chunked scan (``chunk_attn_scan``, the
+    reference's training route) and differentiates it.  Under ``no_grad``
+    it is the forward alone.
     """
-    def plain(q, k, v):
-        return _fa.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    return _FlashAttention.apply(q, k, v, causal, window, scale, kv_chunk)
 
-    def kernel(q, k, v):
-        return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale)
 
-    return _route(flash_attention, plain, kernel, q, q, k, v)
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, kv_chunk):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, scale=scale)
+        ctx.kv_chunk = kv_chunk
+
+        def plain(q, k, v):
+            return _fa.flash_attention_ref(q, k, v, kv_chunk=kv_chunk, **ctx.opts)
+
+        def kernel(q, k, v):
+            return _fa.flash_attention_cuda(q, k, v, **ctx.opts)
+
+        q, k, v = q.detach(), k.detach(), v.detach()
+        return _route(flash_attention, plain, kernel, q, q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad):
+        def scan(q, k, v):
+            return _fa.chunk_attn_scan(q, k, v, q_offset=0,
+                                       kv_chunk=min(ctx.kv_chunk, k.shape[1]), **ctx.opts)
+
+        return _plain_grads(ctx, scan, grad) + (None,) * 4
 
 
 def rwkv_time_mix(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -148,10 +177,37 @@ def rwkv_time_mix(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     u (H, 64) -> (B, S, H, 64) in r's type.  The final state is not returned.
 
     On the card one call launches the kernel's two passes (intra-chunk
-    terms, then the state carry) and counts one launch.
+    terms, then the state carry) and counts one launch.  Differentiable as
+    ``flash_attention`` is: the backward recomputes the plain chunked form
+    (``time_mix_chunked``, chunks of 64) and differentiates it.
     """
-    return _route(rwkv_time_mix, _rw.rwkv_time_mix_ref, _rw.rwkv_time_mix_cuda, r,
-                  r, k, v, logw, u)
+    return _RWKVTimeMix.apply(r, k, v, logw, u)
+
+
+class _RWKVTimeMix(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u):
+        ctx.save_for_backward(r, k, v, logw, u)
+        args = [t.detach() for t in (r, k, v, logw, u)]
+        return _route(rwkv_time_mix, _rw.rwkv_time_mix_ref, _rw.rwkv_time_mix_cuda,
+                      args[0], *args)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _plain_grads(ctx, _rw.rwkv_time_mix_ref, grad)
+
+
+def _plain_grads(ctx, plain, grad) -> tuple:
+    """Gradients of ``plain`` at the saved inputs (None where none is needed):
+    the plain version recomputed with grad enabled."""
+    saved = ctx.saved_tensors
+    needs = ctx.needs_input_grad[:len(saved)]
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
+        out = plain(*inputs)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad))
+    return tuple(next(grads) if n else None for n in needs)
 
 
 for _fn in (mrc_logw, mrc_fixed_encode, bernoulli_kl, bernoulli_kl_total,

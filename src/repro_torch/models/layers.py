@@ -9,7 +9,8 @@ do no arithmetic and have no counterpart: the port runs on one card.
 
 ``attention`` (training and prefill) goes through ``kernels.ops
 .flash_attention``, once per call: the CUDA kernel on the card, the port of
-the reference's chunked lazy-softmax scan on the CPU.  ``decode_attention``
+the reference's chunked lazy-softmax scan on the CPU; its backward is that
+scan's, recomputed.  ``decode_attention``
 is plain PyTorch, as the reference computes it outside any Pallas kernel;
 so are M-RoPE (Qwen2-VL's three position streams) and the int8 KV cache
 (``quantize_kv``/``dequantize_kv``: int8 payloads, f16 scales per group of
@@ -135,19 +136,20 @@ def _qkv(cfg: ArchConfig, params, x: torch.Tensor):
     return q, k, v
 
 
-def attention(cfg: ArchConfig, params, x: torch.Tensor,
-              positions: torch.Tensor) -> torch.Tensor:
+def attention(cfg: ArchConfig, params, x: torch.Tensor, positions: torch.Tensor,
+              *, kv_chunk: int = 1024) -> torch.Tensor:
     """Multi-head GQA self attention (training / prefill).
 
     x: (B, S, d); positions: (B, S) or (1, S) (or (B, S, 3) for M-RoPE).
-    One ``ops.flash_attention`` call per layer.
+    One ``ops.flash_attention`` call per layer; its CPU route and its
+    backward scan KV in chunks of ``min(kv_chunk, S)``, as the reference.
     """
     b, s, _ = x.shape
     q, k, v = _qkv(cfg, params, x)
     q = rotate(cfg, q, positions)
     k = rotate(cfg, k, positions)
     out = ops.flash_attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window,
-                              scale=cfg.head_dim ** -0.5)
+                              scale=cfg.head_dim ** -0.5, kv_chunk=kv_chunk)
     return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ params["wo"]
 
 

@@ -20,14 +20,22 @@ audio frame inputs (HuBERT, ``embed_inputs=False``: no ``embed`` and no
 decode step); RoPE, M-RoPE, sliding windows; the bf16 and the int8
 (``kv_cache_quant``) KV caches.  ``build`` takes every config in
 ``repro_torch.configs``.  ``forward`` returns logits, and with
-``return_aux`` the MoE layers' summed load-balance loss; the losses and
-training come later.
+``return_aux`` the MoE layers' summed load-balance loss.
+
+Training: ``lm_loss`` and ``encoder_loss`` run the same backbone with
+autograd on, each layer after the prefix wrapped in
+``torch.utils.checkpoint`` when ``cfg.remat`` is set (the reference's
+``jax.checkpoint`` of its scanned layers; the ``dots`` policy's saved
+matmul outputs have no counterpart, and no config uses it).  The trainer
+(``launch/train.py``) holds the reference's stacked tree and hands these
+functions per-layer views of it (``convert.layer_views``).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from . import mamba as mamba_mod
@@ -108,14 +116,15 @@ def _patch_rwkv_lns(cfg: ArchConfig, params: Dict, plan) -> None:
                                          device=params["ln1"].device)
 
 
-def apply_layer(cfg: ArchConfig, plan, params, x: torch.Tensor,
-                positions: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+def apply_layer(cfg: ArchConfig, plan, params, x: torch.Tensor, positions: torch.Tensor,
+                *, kv_chunk: int = 1024) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Training / prefill layer.  Returns (x, aux_loss); the aux loss is the
     MoE FFN's, None in every other layer (the reference's 0)."""
     mixer, ffn_kind = plan
     aux = None
     if mixer == "attn":
-        x = x + attention(cfg, params["mixer"], rmsnorm(x, params["ln1"]), positions)
+        x = x + attention(cfg, params["mixer"], rmsnorm(x, params["ln1"]), positions,
+                          kv_chunk=kv_chunk)
     elif mixer == "mamba":
         st0 = mamba_mod.init_mamba_state(cfg, x.shape[0], x.dtype, x.device)
         y, _ = mamba_mod.mamba_block(cfg, params["mixer"], rmsnorm(x, params["ln1"]), st0)
@@ -224,16 +233,30 @@ def positions_for(model: Model, batch: Dict[str, torch.Tensor], s: int,
     return pos
 
 
-def _backbone(model: Model, params, batch) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """(hidden states, the MoE layers' aux losses in layer order)."""
+def _backbone(model: Model, params, batch, *,
+              kv_chunk: int = 1024) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """(hidden states, the MoE layers' aux losses in layer order).  With
+    autograd on and ``cfg.remat`` set, each layer after the prefix is
+    recomputed in the backward pass instead of keeping its activations."""
     x = embed_inputs(model, params, batch)
     positions = positions_for(model, batch, x.shape[1], x.device)
+    remat = model.cfg.remat and torch.is_grad_enabled()
     auxes = []
-    for plan, p in zip(layer_plans(model), params["layers"]):
-        x, aux = apply_layer(model.cfg, plan, p, x, positions)
+    for i, (plan, p) in enumerate(zip(layer_plans(model), params["layers"])):
+        if remat and i >= len(model.prefix):
+            x, aux = checkpoint(apply_layer, model.cfg, plan, p, x, positions,
+                                kv_chunk=kv_chunk, use_reentrant=False)
+        else:
+            x, aux = apply_layer(model.cfg, plan, p, x, positions, kv_chunk=kv_chunk)
         if aux is not None:
             auxes.append(aux)
     return x, auxes
+
+
+def _aux_total(auxes: List[torch.Tensor], device) -> torch.Tensor:
+    # the reference adds every layer's aux to 0 in layer order; its dense
+    # layers' zeros change no sum
+    return sum(auxes, torch.zeros((), dtype=torch.float32, device=device))
 
 
 @torch.no_grad()
@@ -246,9 +269,27 @@ def forward(model: Model, params, batch: Dict[str, torch.Tensor], *,
     logits = rmsnorm(x, params["final_norm"]) @ params["head"]
     if not return_aux:
         return logits
-    # the reference adds every layer's aux to 0 in layer order; its dense
-    # layers' zeros change no sum
-    return logits, sum(auxes, torch.zeros((), dtype=torch.float32, device=x.device))
+    return logits, _aux_total(auxes, x.device)
+
+
+def lm_loss(model: Model, params, batch: Dict[str, torch.Tensor], *,
+            aux_weight: float = 0.01, kv_chunk: int = 1024) -> torch.Tensor:
+    """Mean next-token cross-entropy over ``batch["labels"]`` (B, S), from
+    f32 logits (``logsumexp`` minus the gold logit), plus ``aux_weight``
+    times the MoE layers' summed load-balance loss: a 0-d f32 tensor,
+    differentiable in ``params``."""
+    x, auxes = _backbone(model, params, batch, kv_chunk=kv_chunk)
+    logits = rmsnorm(x, params["final_norm"]) @ params["head"]
+    lf = logits.to(torch.float32)
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, batch["labels"].to(torch.int64)[..., None])[..., 0]
+    return (logz - gold).mean() + aux_weight * _aux_total(auxes, x.device)
+
+
+def encoder_loss(model: Model, params, batch: Dict[str, torch.Tensor], *,
+                 kv_chunk: int = 1024) -> torch.Tensor:
+    """Frame-classification cross-entropy for the encoder-only (audio) arch."""
+    return lm_loss(model, params, batch, aux_weight=0.0, kv_chunk=kv_chunk)
 
 
 @torch.no_grad()

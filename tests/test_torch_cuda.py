@@ -1136,3 +1136,96 @@ def test_cnn_on_card_matches_cpu(cuda):
     got = net(x)
     want = nets.make_cnn(hw=14, channels=3, device="cpu")(x.cpu(), [w.cpu() for w in weights])
     _close_to_max(got, want, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Training: the two model kernels' Functions differentiated, the sign draw,
+# a train step, card against CPU.
+# ---------------------------------------------------------------------------
+
+from repro_torch import convert  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+
+# Gradients card vs CPU: the same plain backward (a recomputed chunked scan)
+# in two libraries' summation orders, f32 with TF32 off.
+GRAD_RTOL = 1e-5
+
+
+def _grads_through(fn, inputs, weight):
+    """(output, d sum(output * weight) / d inputs) through ``fn``."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    return out.detach(), torch.autograd.grad((out.float() * weight).sum(), leaves)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,causal,window,kv_chunk", [
+    ((2, 128, 128, 4, 2, 64), True, 0, 128), ((1, 200, 200, 4, 4, 80), False, 0, 64),
+    ((2, 96, 96, 4, 2, 128), True, 32, 1024)])
+def test_flash_attention_backward_on_card_matches_cpu(cuda, shape, causal, window, kv_chunk,
+                                                      dtype):
+    """``ops.flash_attention`` differentiated: the forward launches the kernel
+    once (the backward none) and the gradients equal the CPU route's."""
+    q, k, v = _flash_inputs(*shape, dtype=dtype, device=cuda, seed=sum(shape) + 7)
+    kw = dict(causal=causal, window=window, scale=shape[-1] ** -0.5, kv_chunk=kv_chunk)
+    weight = torch.randn(q.shape, device=cuda)
+
+    def fn(*t):
+        return ops.flash_attention(*t, **kw)
+
+    before = ops.flash_attention.launches
+    out, grads = _grads_through(fn, (q, k, v), weight)
+    assert ops.flash_attention.launches == before + 1
+    out_cpu, grads_cpu = _grads_through(fn, [t.cpu() for t in (q, k, v)], weight.cpu())
+    _assert_attn_close(out, q, k, v, **{n: kw[n] for n in ("causal", "window", "scale")})
+    for g, w in zip(grads, grads_cpu):
+        assert g.dtype == dtype
+        # bf16 gradients: one bf16 ulp of each entry on top
+        tol = GRAD_RTOL * w.float().abs().max() + (
+            _bf16_ulp(w) if dtype == torch.bfloat16 else 0)
+        assert bool(((g.cpu().float() - w.float()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("b,s,h", [(2, 130, 2), (1, 64, 4)])
+def test_rwkv_backward_on_card_matches_cpu(cuda, b, s, h):
+    r, k, v, logw, u = _rwkv_inputs(b, s, h, torch.float32, cuda, seed=b + s)
+    weight = torch.randn(r.shape, device=cuda)
+    before = ops.rwkv_time_mix.launches
+    out, grads = _grads_through(ops.rwkv_time_mix, (r, k, v, logw, u), weight)
+    assert ops.rwkv_time_mix.launches == before + 1
+    _, grads_cpu = _grads_through(ops.rwkv_time_mix, [t.cpu() for t in (r, k, v, logw, u)],
+                                  weight.cpu())
+    for g, w in zip(grads, grads_cpu):
+        _close_to_max(g, w, GRAD_RTOL)
+
+
+def test_sign_draw_on_card_equals_cpu(cuda):
+    """The stochastic sign's Bernoulli bits, drawn in ranges on the card,
+    equal the CPU's on the same probabilities and key."""
+    p = torch.rand(3 * train_mod.SIGN_DRAW_RANGE // 2 + 77, device=cuda)
+    key = prng.fold_in(prng.PRNGKey(5, device=cuda), 3)
+    got = train_mod._bernoulli(key, p)
+    assert torch.equal(got.cpu(), train_mod._bernoulli(key.cpu(), p.cpu()))
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """Two steps of the reduced qwen3 (f32, microbatches 2, sign
+    compression) from the same weights: losses and parameters card vs CPU
+    (parameters within 1e-2 lr but at entries whose sign flipped)."""
+    cfg = model_configs.get("qwen3-1.7b").reduced()
+    model = T.build(cfg)
+    params = convert.stack_model_params(model, T.init_params(model, seed=3, device="cpu"))
+    runs = {}
+    for dev in ("cpu", cuda):
+        tr = train_mod.Trainer(cfg, lr=1e-3, microbatches=2, kv_chunk=32,
+                               grad_compression="stochastic_sign", device=dev,
+                               params=tree_map(lambda t: t.to(dev), params))
+        gen = np.random.default_rng(4)
+        losses = [tr.step({"tokens": gen.integers(0, cfg.vocab, (4, 32)),
+                           "labels": gen.integers(0, cfg.vocab, (4, 32))}) for _ in range(2)]
+        runs[str(dev)] = losses, [t.cpu() for t in tree_leaves(tr.params)]
+    (l_cpu, p_cpu), (l_card, p_card) = runs["cpu"], runs[str(cuda)]
+    assert l_card == pytest.approx(l_cpu, rel=1e-5)
+    far = sum(int(((a - b).abs() > 1e-5).sum()) for a, b in zip(p_card, p_cpu))
+    assert far <= 1e-4 * sum(t.numel() for t in p_cpu), far
