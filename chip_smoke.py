@@ -226,12 +226,15 @@ from repro_torch.fl.faults import FaultPlan  # noqa: E402
 from repro_torch.fl.registry import ALL_BASELINES, baseline_spec, bicompfl_spec  # noqa: E402
 from repro_torch.fl.registry import cfl_spec, fault_matrix  # noqa: E402
 from repro_torch.kernels import bernoulli_kl, build, mrc_weights, ops  # noqa: E402
+from repro_torch.kernels import cost as kcost  # noqa: E402
 from repro_torch.kernels import flash_attn, rwkv_chunk  # noqa: E402
 from repro_torch.kernels import segment_logw as seg_kernel  # noqa: E402
 from repro_torch.kernels.segment_logw import segment_logw_ref  # noqa: E402
 from repro_torch import configs, train_100m  # noqa: E402
 from repro_torch.data import batches_for  # noqa: E402
-from repro_torch.launch import train as train_mod  # noqa: E402
+from repro_torch.launch import dryrun, op_cost, train as train_mod  # noqa: E402
+from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16, PEAK_FLOPS_F32  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh  # noqa: E402
 from repro_torch.launch.serve import Request, Server  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models import layers as layers_mod  # noqa: E402
@@ -240,9 +243,9 @@ from repro_torch.models import transformer  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 ROUNDS = 5
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
-FP32_FLOPS_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
+# H100 SXM, NVIDIA data sheet (``launch/mesh.py``): HBM3, f32 outside the
+# tensor cores, bf16 tensor cores dense.
+HBM_BYTES_PER_S, FP32_FLOPS_PER_S, BF16_FLOPS_PER_S = HBM_BW, PEAK_FLOPS_F32, PEAK_FLOPS_BF16
 # fp32 S-term sums in another order than the plain version's GEMV: a few
 # ulp of the partial sums (|logW| here is O(10..100)).
 LOGW_RTOL, LOGW_ATOL = 1e-5, 1e-4
@@ -273,6 +276,17 @@ XCHECK_REL_L2 = 1e-3
 XCHECK_PROMPT = 256
 PREFILL_BATCH, PREFILL_SEQ = 2, 4096
 PROFILED_STEPS = 8
+# Phase 16: the dry run's predictions (made before the runs they predict),
+# what the runs measured, and phase 8's prefill walls.
+DRY, MEASURED, PREFILL_MS = {}, {}, {}
+# The caching allocator rounds every block up to a multiple of 512 bytes,
+# and hands out a block of the large pool (requests over 1 MiB) whole when
+# splitting it would leave less than 1 MiB (``kSmallSize``);
+# ``memory_allocated`` counts the blocks' sizes.
+ALLOC_ROUND, LARGE_REQUEST = 512, 1 << 20
+DRYRUN_PREFILL_ARCH = "qwen3-1.7b"
+DRYRUN_PRODUCTION = [("qwen3-1.7b", s) for s in configs.SHAPES] + [("kimi-k2-1t-a32b",
+                                                                     "decode_32k")]
 MODELS = {"qwen3-1.7b": "flash_attention", "rwkv6-1.6b": "rwkv_time_mix"}
 # Phase 13: the MoE and Jamba configs at full width, cut in depth (layers
 # kept): Jamba's one unit of 8 (7 Mamba, 1 attention; 4 MoE, 4 dense FFNs),
@@ -613,12 +627,10 @@ def check_mrc_logw(shape, seed, timed=True, device=False):
         return None
     bsum = b.sum(-1)[:, None, None]
     a3 = a[:, :, None]
-    nb, nis, s = shape
+    work = kcost.mrc_logw(x, a, b)
     row = timed_row("mrc_logw", shape, err.max().item(), lambda: ops.mrc_logw(x, a, b),
                     lambda: mrc_weights.mrc_logw_ref(x, a, b),
-                    lambda: torch.baddbmm(bsum, x, a3),
-                    4 * (x.numel() + a.numel() + b.numel() + nb * nis),
-                    2 * x.numel() + b.numel())
+                    lambda: torch.baddbmm(bsum, x, a3), work.nbytes, work.flops)
     if device:
         dev_ms, per_call = device_per_call(lambda: ops.mrc_logw(x, a, b), expect=1)
         row.update(device_ms=dev_ms, device_kernels_per_call=per_call)
@@ -671,15 +683,17 @@ def check_bernoulli_kl(payload, priors):
     err = assert_close_sums("bernoulli_kl_profile (10, 28160)",
                             launched_once(ops.bernoulli_kl_profile, payload, p),
                             bernoulli_kl.profile_ref(payload, p), sc.sum(0) / n)
+    work = kcost.bernoulli_kl_profile(payload, p)
     rows["profile"] = timed_row(
         "bernoulli_kl_profile", (n, d), err, lambda: ops.bernoulli_kl_profile(payload, p),
-        lambda: bernoulli_kl.profile_ref(payload, p), None, 4 * (2 * n * d + d), 14 * n * d)
+        lambda: bernoulli_kl.profile_ref(payload, p), None, work.nbytes, work.flops)
     err = assert_close_sums("bernoulli_kl_total (10, 28160)",
                             launched_once(ops.bernoulli_kl_total, payload, p),
                             bernoulli_kl.total_ref(payload, p), sc.sum() / n)
+    work = kcost.bernoulli_kl_total(payload, p)
     rows["total"] = timed_row(
         "bernoulli_kl_total", (n, d), err, lambda: ops.bernoulli_kl_total(payload, p),
-        lambda: bernoulli_kl.total_ref(payload, p), None, 4 * (2 * n * d + 1), 14 * n * d)
+        lambda: bernoulli_kl.total_ref(payload, p), None, work.nbytes, work.flops)
     for form, fn in (("profile", ops.bernoulli_kl_profile), ("total", ops.bernoulli_kl_total)):
         dev_ms, per_call = device_per_call(lambda: fn(payload, p), expect=1)
         rows[form].update(device_ms=dev_ms, device_kernels_per_call=per_call)
@@ -736,10 +750,11 @@ def check_segment_logw(payload, priors, kt, seg, n_seg):
     u, p, a, b = segment_inputs(payload, priors, kt, 64)
     seg_t, _, _, err = check_segment_case("main path", u, p, a, b, seg, n_seg)
     c, nis, d = p.shape[0], u.shape[0], u.shape[1]
+    work = kcost.segment_logw(u, p, a, b, seg_t, n_seg)
     row = timed_row("segment_logw", (c, nis, d, n_seg), err,
                     lambda: ops.segment_logw(u, p, a, b, seg_t, n_seg),
                     lambda: segment_logw_ref(u, p, a, b, seg_t.long(), n_seg), None,
-                    4 * (u.numel() + 3 * c * d + d + c * nis * n_seg), 2 * c * nis * d)
+                    work.nbytes, work.flops)
     check_segment_case("one segment", u, p, a, b, np.zeros(d, np.int32), 1)
     check_segment_case("all singletons", u, p, a, b, np.arange(d, dtype=np.int32), d)
     rng = np.random.default_rng(3)
@@ -848,8 +863,8 @@ def check_segment_encode(payload, priors, kt, seg, n_seg, tf, fed_row):
         kt, sels, pc, a, b, seg_l, 64, n_seg)
     unfused = lambda: seg_kernel.segment_mrc_encode_ref(  # noqa: E731
         kt, sels, pc, a, b, seg_t, 64, n_seg, seg_logw_fn=ops.segment_logw)
-    draws = 64 * d + n * 64 * n_seg
-    nbytes = 4 * (3 * n * d + d + n * d + n * 64 * n_seg) + 8 * (n * n_seg + 2 + 2 * n)
+    work = kcost.segment_mrc_encode(kt, sels, pc, a, b, seg_t, 64, n_seg)
+    draws, nbytes = work.draws, work.nbytes
     row = timed_row("segment_mrc_encode", (n, 64, d, n_seg), err, kernel, plain, None,
                     nbytes, draws * tf[0], tf[1])
     row["unfused_ms"] = cuda_time_ms(unfused)
@@ -908,8 +923,8 @@ def check_client_key_encode(payload, priors, kt, seg, n_seg, tf):
     kernel = lambda: ops.segment_mrc_encode(keys, sels, pc, a, b, seg_t, 64, n_seg)  # noqa: E731
     plain = lambda: seg_kernel.segment_mrc_encode_ref(  # noqa: E731
         keys, sels, pc, a, b, seg_t.long(), 64, n_seg)
-    draws = n * 64 * d + n * 64 * n_seg
-    nbytes = 4 * (3 * n * d + d + n * d + n * 64 * n_seg) + 8 * (n * n_seg + 2 * n + 2 * n)
+    work = kcost.segment_mrc_encode(keys, sels, pc, a, b, seg_t, 64, n_seg)
+    draws, nbytes = work.draws, work.nbytes
     row = timed_row("segment_mrc_encode, client keys", (n, 64, d, n_seg), err, kernel, plain,
                     None, nbytes, draws * tf[0], tf[1])
     row["device_ms"], row["device_kernels_per_call"] = device_per_call(kernel, 20, expect=3)
@@ -997,8 +1012,8 @@ def time_fixed_encode(label, key, sels, pc, a, b, nis, err, ties, tf):
     plain = lambda: mrc_weights.mrc_fixed_encode_ref(key, sels, pc, a, b, nis)  # noqa: E731
     unfused = lambda: mrc_weights.mrc_fixed_encode_ref(  # noqa: E731
         key, sels, pc, a, b, nis, logw_fn=ops.mrc_logw)
-    draws = (c if key.dim() == 2 else 1) * nb * nis * s + c * nb * nis
-    nbytes = 4 * (4 * c * nb * s + c * nb * nis) + 8 * (c * nb + key.numel() + sels.numel())
+    work = kcost.mrc_fixed_encode(key, sels, pc, a, b, nis)
+    draws, nbytes = work.draws, work.nbytes
     row = timed_row(f"mrc_fixed_encode {label}", (c, nb, nis, s), err, kernel, plain, None,
                     nbytes, draws * tf[0], tf[1], reps=20)
     row["unfused_ms"] = cuda_time_ms(unfused, reps=20)
@@ -1982,14 +1997,6 @@ def phase_wire_faults_resume():
 # ---------------------------------------------------------------------------
 
 
-def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the mask leaves: the attention's data-dependent work."""
-    i = np.arange(sq)
-    hi = np.minimum(i + 1, skv) if causal else np.full(sq, skv)
-    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(sq, np.int64)
-    return int(np.maximum(hi - lo, 0).sum())
-
-
 def assert_model_close(name, got, want, mag):
     """Kernel vs plain version within MODEL_RTOL x the terms' magnitude
     (+ BF16_ULPS bf16 ulp of the output for a bf16 output)."""
@@ -2029,23 +2036,13 @@ def check_flash(shape, dtype, causal, window, seed, timed, skv=None,
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, is_causal=causal, scale=kw["scale"], enable_gqa=True)
-    esize = q.element_size()
-    nbytes = esize * (2 * q.numel() + k.numel() + v.numel())
-    flops = 4 * b * h * dh * visible_pairs(s, s, causal, window)
+    flops, nbytes, _ = kcost.flash_attention(q, k, v, causal, window)
     rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
     log(f"{label}:")
     return timed_row("flash_attention", shape, err,
                      lambda: ops.flash_attention(q, k, v, **kw),
                      lambda: flash_attn.flash_attention_ref(q, k, v, **kw), library,
                      nbytes, flops, rate, reps=10)
-
-
-def rwkv_flops(b, s, h, dh=64):
-    """The fewest f32 operations of the mix (an FMA is 2, an exp 1): the
-    per-token recurrence, per token and head, reads r.S (Dh Dh FMAs), updates
-    S = w*S + k(x)v (a product and an FMA each of Dh Dh), takes Dh exps for
-    w and adds the bonus (r*u*k).v (3 Dh + 2 Dh)."""
-    return b * s * h * (5 * dh * dh + 6 * dh)
 
 
 def check_rwkv(shape, seed, timed, strong=False, dtype=torch.float32):
@@ -2064,9 +2061,10 @@ def check_rwkv(shape, seed, timed, strong=False, dtype=torch.float32):
     if not timed:
         log(f"{label}: max|err| {err:.3e}")
         return None
+    work = kcost.rwkv_time_mix(r, k, v, logw, u)
     return timed_row("rwkv_time_mix", shape, err, lambda: ops.rwkv_time_mix(r, k, v, logw, u),
                      lambda: rwkv_chunk.rwkv_time_mix_ref(r, k, v, logw, u), None,
-                     4 * (5 * r.numel() + u.numel()), rwkv_flops(b, s, h), reps=10)
+                     work.nbytes, work.flops, reps=10)
 
 
 def phase_model_kernels():
@@ -2214,6 +2212,8 @@ def prefill_path(arch, loaded=None, profile_seq=None, batch=None, forward=False)
     drops = [round(1.0 - float(r.keep.float().mean()), 6) for r in routes]
     del routes
     wall, walls = median_wall_ms(lambda: step(model, params, batch))
+    if loaded is None:
+        PREFILL_MS[(arch, name)] = wall
     kernel = MODELS.get(arch, "flash_attention")
     tokens = PREFILL_BATCH * PREFILL_SEQ
     log(f"{name} {arch} {cfg.dtype} ({PREFILL_BATCH}, {PREFILL_SEQ}), {cfg.n_layers} layers: "
@@ -2896,17 +2896,33 @@ def train_full_width():
     batches = list(batches_for(cfg, TRAIN_BATCH, TRAIN_SEQ, n=TRAIN_STEPS))
     expect = 2 * TRAIN_MB * cfg.n_layers      # forward + remat's recompute, per microbatch
     runs, launches = {}, {k: 0 for k in KERNELS}
+    predict_train()                           # phase 16 (a)'s prediction, before any trainer
     for comp in ("stochastic_sign", None):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         tr = train_mod.Trainer(cfg, lr=TRAIN_LR, microbatches=TRAIN_MB, kv_chunk=TRAIN_SEQ,
                                grad_compression=comp, seed=0, device="cuda")
         torch.cuda.synchronize()
         t_init = time.perf_counter() - t0
+        if comp is None:
+            held = torch.cuda.memory_allocated() - before
+            bt = train_mod.batch_tensors(batches[0], "cuda")
+            MEASURED["train"] = {
+                "init_growth": held, "batch_growth": torch.cuda.memory_allocated() - before - held,
+                "batch_int_entries": sum(t.numel() for t in bt.values()
+                                         if not t.is_floating_point()),
+                "tensor_bytes": [t.numel() * t.element_size() for t in tree_leaves(
+                    (tr.params, tr.opt_state, tr.key, bt)) if isinstance(t, torch.Tensor)]}
+            del bt
         steps = []
-        for b in batches:
+        for i, b in enumerate(batches):
+            if comp is None and i == 0:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
             retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
             reset_counts()
             t0 = time.perf_counter()
@@ -2914,6 +2930,9 @@ def train_full_width():
             torch.cuda.synchronize()
             ms = 1e3 * (time.perf_counter() - t0)
             counts = read_counts()
+            if comp is None and i == 0:
+                MEASURED["train"].update(step1_peak=torch.cuda.max_memory_allocated(),
+                                         step1_base=base, step1_ms=ms)
             for k, v in counts.items():
                 launches[k] += v
             # the caching allocator's retries (cached blocks freed, cudaMalloc
@@ -3005,6 +3024,20 @@ def step_parts(cfg, params):
     return parts
 
 
+def predict_train():
+    """Phase 16 (a)'s prediction for phase 15's full-width run: the same
+    configuration dry-run on the one card's (1, 1) mesh."""
+    t0 = time.perf_counter()
+    totals, out, meta = dryrun.trace_combo(TRAIN_ARCH, "train_4k", make_host_mesh(),
+                                           kv_chunk=TRAIN_SEQ, microbatches=TRAIN_MB,
+                                           batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    DRY["train"] = {"totals": totals, **out}
+    log(f"dry run of the training step ({TRAIN_ARCH}, ({TRAIN_BATCH}, {TRAIN_SEQ}) in "
+        f"{TRAIN_MB} microbatches, (1, 1) mesh, {meta['optimizer']}), before the trainer: "
+        f"{json.dumps(out['memory'])}; {out['roofline'].row()} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
 def phase_train():
     """Phase 15: (a) the Functions and the sign draw card vs CPU at reduced
     size, (b) qwen3-1.7b trained at full width, (c) ``train_100m`` for 50
@@ -3033,6 +3066,128 @@ def phase_train():
                              f"{out['train_100m']}")
     log(f"phase 15 seconds: {seconds}")
     log(f"training: {json.dumps(runs)}")
+    return out
+
+
+def check_args(label, predicted, growth, int_entries, tensor_bytes):
+    """The dry run's argument bytes against the device memory the arguments
+    took: token ids are int64 on the card (``batch_tensors``, ``randint``)
+    and int32 in the specs, 4 bytes more an entry; the allocator gives each
+    tensor of ``tensor_bytes`` under ``ALLOC_ROUND`` bytes more, and under
+    1 MiB more again a large-pool one (``LARGE_REQUEST``)."""
+    want = predicted + 4 * int_entries
+    large = sum(n > LARGE_REQUEST for n in tensor_bytes)
+    slack = ALLOC_ROUND * len(tensor_bytes) + LARGE_REQUEST * large
+    log(f"  {label}: argument bytes predicted {predicted} (+{4 * int_entries} for int64 "
+        f"token ids = {want}), measured growth {growth}: {growth - want} B over "
+        f"({(growth - want) / want:.3e} of it), bound [0, {slack}) ({len(tensor_bytes)} "
+        f"blocks, {large} of the large pool)")
+    if sum(tensor_bytes) != want or not 0 <= growth - want < slack:
+        raise AssertionError(f"{label}: predicted argument bytes {want}, the card's "
+                             f"allocations grew by {growth}")
+
+
+def phase_dryrun():
+    """Phase 16: the dry run against the card.  (a) memory: argument bytes
+    equal to what the arguments took on the card (the training step, the
+    qwen3-1.7b prefill of (2, 4096)); temp and peak printed beside the
+    measured peaks.  (b) FLOPs: ``op_cost`` over the prefill on the card
+    counts the meta trace's matrix products outside attention; attention by
+    each route's formula.  (c) each bound beside the measured time.  (d) the
+    production mesh: ``run_combo`` on (16, 16), each ``ok`` or a documented
+    ``skip``."""
+    t0 = time.perf_counter()
+    out = {}
+    # (a) training
+    pred, got = DRY["train"]["memory"], MEASURED["train"]
+    log("phase 16 (a) memory:")
+    check_args(f"train {TRAIN_ARCH}", pred["argument_bytes"],
+               got["init_growth"] + got["batch_growth"], got["batch_int_entries"],
+               got["tensor_bytes"])
+    step1 = got["step1_peak"] - got["step1_base"]
+    log(f"  train step 1 (bf16): predicted temp {pred['temp_bytes']} B, peak "
+        f"{pred['peak_bytes']} B; measured {step1} B above the arguments, peak "
+        f"max_memory_allocated {got['step1_peak']} B ({got['step1_peak'] / pred['peak_bytes']:.4f} "
+        f"of the predicted peak)")
+    out["train_memory"] = {"predicted": pred, "measured": got}
+    # (a) and (b): the prefill of (2, 4096)
+    arch = DRYRUN_PREFILL_ARCH
+    meta_totals, pre, _ = dryrun.trace_combo(arch, "prefill_32k", make_host_mesh(),
+                                             batch=PREFILL_BATCH, seq=PREFILL_SEQ)
+    cfg = configs.get(arch)
+    model = transformer.build(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    params = transformer.init_params(model, seed=0, device="cuda")
+    tokens = seeded_tokens(cfg.vocab, PREFILL_BATCH, PREFILL_SEQ, 11)
+    torch.cuda.synchronize()
+    growth = torch.cuda.memory_allocated() - before
+    check_args(f"prefill {arch} ({PREFILL_BATCH}, {PREFILL_SEQ})",
+               pre["memory"]["argument_bytes"], growth, tokens.numel(),
+               [t.numel() * t.element_size() for t in tree_leaves((params, tokens))])
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    with op_cost.OpCost() as oc:
+        logits = transformer.prefill_step(model, params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    launches = read_counts()["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  prefill: predicted temp {pre['memory']['temp_bytes']} B (the meta trace's plain "
+        f"attention scan), peak {pre['memory']['peak_bytes']} B; measured {peak - base} B "
+        f"above the arguments (the kernel route), peak {peak} B")
+    card = oc.totals
+    q = torch.empty((PREFILL_BATCH, PREFILL_SEQ, cfg.n_heads, cfg.head_dim), device="meta")
+    kv = torch.empty((PREFILL_BATCH, PREFILL_SEQ, cfg.n_kv_heads, cfg.head_dim), device="meta")
+    kernel_attn = cfg.n_layers * kcost.flash_attention(q, kv, kv, cfg.causal,
+                                                        cfg.sliding_window).flops
+    plain_attn = cfg.n_layers * op_cost.analyze(flash_attn.flash_attention_ref, q, kv, kv,
+                                                causal=cfg.causal).flops
+    regions = (card.flops_by_region, meta_totals.flops_by_region)
+    log(f"phase 16 (b) FLOPs, prefill {arch} ({PREFILL_BATCH}, {PREFILL_SEQ}): outside "
+        f"attention card {regions[0].get('', 0):.6e}, meta {regions[1].get('', 0):.6e}; "
+        f"attention card (the kernel's formula, {launches} launches) "
+        f"{regions[0].get('flash_attention', 0):.6e} (expected {kernel_attn:.6e}), meta (the "
+        f"plain scan's) {regions[1].get('flash_attention', 0):.6e} (expected {plain_attn:.6e})")
+    if set(regions[0]) != {"", "flash_attention"} or set(regions[1]) != set(regions[0]) \
+            or regions[0][""] != regions[1][""] \
+            or regions[0]["flash_attention"] != kernel_attn \
+            or regions[1]["flash_attention"] != plain_attn \
+            or card.ops.get("kernel:flash_attention") != cfg.n_layers:
+        raise AssertionError(f"phase 16 (b): card {regions[0]}, meta {regions[1]}, kernel "
+                             f"reports {card.ops.get('kernel:flash_attention')}")
+    if tuple(logits.shape) != (PREFILL_BATCH, 1, cfg.vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("phase 16: the traced prefill's logits")
+    del params, logits, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["prefill"] = {"predicted": pre["memory"], "measured_peak": peak,
+                      "measured_temp": peak - base, "card_flops": card.flops,
+                      "meta_flops": meta_totals.flops}
+    # (c) the bounds beside the measured times
+    log("phase 16 (c) roofline bounds against the measured times:")
+    for label, rl, ms in (
+            (f"prefill {arch} ({PREFILL_BATCH}, {PREFILL_SEQ}), phase 8", pre["roofline"],
+             PREFILL_MS.get((arch, "prefill"))),
+            (f"train {TRAIN_ARCH} bf16 step 1, phase 15", DRY["train"]["roofline"],
+             MEASURED["train"]["step1_ms"])):
+        row = rl.row()
+        log(f"  {label}: bound {row['bound_s'] * 1e3:.3f} ms ({row['dominant']}; compute "
+            f"{row['compute_s'] * 1e3:.3f}, memory {row['memory_s'] * 1e3:.3f}, collective "
+            f"{row['collective_s'] * 1e3:.3f}); measured {fmt_ms(ms)}"
+            + (f" = {ms / (row['bound_s'] * 1e3):.2f}x the bound" if ms else ""))
+        out[label] = {"roofline": row, "measured_ms": ms}
+    # (d) the production mesh
+    log("phase 16 (d) run_combo on the (16, 16) mesh:")
+    results = [dryrun.run_combo(a, shape, mesh=make_production_mesh(), verbose=True)
+               for a, shape in DRYRUN_PRODUCTION]
+    bad = [r for r in results if r["status"] not in ("ok", "skip")]
+    out["production"] = {f"{r['arch']} {r['shape']}": r["status"] for r in results}
+    if bad:
+        raise AssertionError(f"phase 16 (d): {bad}")
+    log(f"phase 16: {json.dumps(out['production'])} in {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -3176,11 +3331,15 @@ def main() -> int:
     # Phase 15.
     moe_runs.update(phase_train())
     marks.append(time.perf_counter())
+    # Phase 16.
+    phase_dryrun()
+    marks.append(time.perf_counter())
     log(f"phase seconds: build and FL phases 2-6 {t_fl - t0:.1f}, model kernels "
         f"{marks[0] - t_fl:.1f}, prefill {marks[1] - marks[0]:.1f}, cross-check "
         f"{marks[2] - marks[1]:.1f}, serve {marks[3] - marks[2]:.1f}, MoE and Jamba "
         f"{marks[4] - marks[3]:.1f}, HuBERT, Qwen2-VL and the int8 cache "
-        f"{marks[5] - marks[4]:.1f}, training {marks[6] - marks[5]:.1f}")
+        f"{marks[5] - marks[4]:.1f}, training {marks[6] - marks[5]:.1f}, dry run "
+        f"{marks[7] - marks[6]:.1f}")
 
     def by_path(*names, paths=None):
         return {p: sum(runs[p][0][k] for k in names) for p in (paths or runs)}

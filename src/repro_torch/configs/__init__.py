@@ -2,9 +2,9 @@
 
 ``get(arch_id)`` returns the exact ArchConfig from the assignment table,
 ``all_configs()`` every one of them by module name; ``models.transformer
-.build`` takes each.  The reference's ``input_specs`` (``jax.ShapeDtypeStruct``
-stand-ins for the dry-run) is not ported yet: its one caller, the dry run,
-is not either.
+.build`` takes each.  ``input_specs(cfg, shape)`` gives ``meta`` tensors
+(shape and dtype, no storage) for every model input of one of the four
+canonical input shapes: the dry run's inputs.
 
 Shapes:
     train_4k     seq 4,096    global_batch 256   (train_step)
@@ -17,6 +17,8 @@ from __future__ import annotations
 import dataclasses
 import importlib
 from typing import Dict, Optional
+
+import torch
 
 from repro_torch.models.config import ArchConfig
 
@@ -81,3 +83,31 @@ def for_shape(cfg: ArchConfig, shape: str) -> ArchConfig:
     if shape == "long_500k" and cfg.long_context_window and not cfg.sliding_window:
         return dataclasses.replace(cfg, sliding_window=cfg.long_context_window)
     return cfg
+
+
+def input_specs(cfg: ArchConfig, shape: str, *, batch: Optional[int] = None,
+                seq: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """``meta`` stand-ins for each input of (cfg, shape), in the reference's
+    shapes and dtypes: int32 tokens, labels and positions, f32 frames and
+    image embeddings, a 0-d ``pos`` for decode.  ``batch`` and ``seq``
+    replace the shape's own (a run cut to a card's size)."""
+    info = SHAPES[shape]
+    s, b = seq or info["seq"], batch or info["batch"]
+
+    def f(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if info["kind"] == "decode":
+        return {"tokens": f((b, 1), torch.int32), "pos": f((), torch.int32)}
+    out: Dict[str, torch.Tensor] = {}
+    if cfg.embed_inputs:
+        out["tokens"] = f((b, s), torch.int32)
+    else:
+        out["inputs"] = f((b, s, cfg.d_model), torch.float32)
+    if cfg.vlm_image_tokens:
+        out["image_embeds"] = f((b, cfg.vlm_image_tokens, cfg.d_model), torch.float32)
+        if cfg.rope_kind == "mrope":
+            out["positions"] = f((b, s, 3), torch.int32)
+    if info["kind"] == "train":
+        out["labels"] = f((b, s), torch.int32)
+    return out

@@ -22,7 +22,7 @@ import functools
 
 import torch
 
-from . import build
+from . import build, cost
 
 NAME = "flash_attn"
 # Negative-infinity substitute that is safe in bf16 softmax arithmetic
@@ -48,8 +48,9 @@ def chunk_attn_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, h, sq, dh), dtype=torch.float32, device=q.device)
-    for c in range(n_chunks):
-        lo, hi = c * kv_chunk, min((c + 1) * kv_chunk, skv)
+
+    def step(lo, q32, k, v, m, l, acc):
+        hi = min(lo + kv_chunk, skv)
         kc = k[:, lo:hi].to(torch.float32).repeat_interleave(rep, dim=2)
         vc = v[:, lo:hi].to(torch.float32).repeat_interleave(rep, dim=2)
         if hi - lo < kv_chunk:                   # the reference's zero padding
@@ -68,7 +69,17 @@ def chunk_attn_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
         acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vc)
-        m = m_new
+        return m_new, l, acc
+
+    starts = list(range(0, skv, kv_chunk))
+    if q.device.type == "meta" and len(starts) > 1:
+        # only shapes flow: the full chunks' step traced once, counted as
+        # many times (the masks differ in values only)
+        full = skv // kv_chunk
+        m, l, acc = cost.repeated(functools.partial(step, 0), full, q32, k, v, m, l, acc)
+        starts = starts[full:]
+    for lo in starts:
+        m, l, acc = step(lo, q32, k, v, m, l, acc)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 2, 1, 3).to(q.dtype)
 

@@ -2,32 +2,45 @@
 
 Each wrapper takes the plain PyTorch version for a tensor on the CPU and the
 hand-written CUDA kernel for a tensor on the card; it never falls back from
-one to the other, and any other device raises.  The two model kernels'
+one to the other.  A tensor on the ``meta`` device also takes the plain
+version's route: only shapes flow and nothing runs (the dry run traces the
+model so, ``launch/dryrun.py``).  Any other device raises.  The two model kernels'
 wrappers are differentiable (``torch.autograd.Function``): the kernel or
 plain version runs forward, and the backward differentiates a recomputed
 plain version, as the reference trains through its jnp routes and through
 no Pallas kernel.  Each has a ``launches``
 count that goes up by one where it launches its kernel and nowhere else, so
-a run can show that its main path went through the kernel.
+a run can show that its main path went through the kernel.  Where it
+launches its kernel it also reports the launch's work (``kernels.cost``)
+to the active cost modes (``launch.op_cost``), which see no ``ctypes``
+call; each route runs inside ``cost.region`` of the wrapper's name.
 """
 from __future__ import annotations
 
 import torch
 
 from . import bernoulli_kl as _kl
+from . import cost
 from . import flash_attn as _fa
 from . import mrc_weights as _mw
 from . import rwkv_chunk as _rw
 from . import segment_logw as _seg
 
 
-def _route(fn, plain, kernel, t: torch.Tensor, *args):
-    if t.device.type == "cpu":
-        return plain(*args)
-    if t.device.type != "cuda":
-        raise ValueError(f"{fn.__name__} runs on cpu or cuda, not {t.device}")
-    out = kernel(*args)
-    fn.launches += 1
+def _route(fn, plain, kernel, t: torch.Tensor, *args, work=None):
+    """``plain(*args)`` for ``t`` on the CPU or ``meta``, ``kernel(*args)``
+    on the card; ``work()`` (default: ``cost.<name>(*args)``) is the
+    launch's work, reported when a cost mode is active."""
+    name = fn.__name__
+    with cost.region(name):
+        if t.device.type in ("cpu", "meta"):
+            return plain(*args)
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} runs on cpu, meta or cuda, not {t.device}")
+        out = kernel(*args)
+        fn.launches += 1
+        if cost.active():
+            cost.report(name, work() if work is not None else getattr(cost, name)(*args))
     return out
 
 
@@ -160,7 +173,8 @@ class _FlashAttention(torch.autograd.Function):
             return _fa.flash_attention_cuda(q, k, v, **ctx.opts)
 
         q, k, v = q.detach(), k.detach(), v.detach()
-        return _route(flash_attention, plain, kernel, q, q, k, v)
+        return _route(flash_attention, plain, kernel, q, q, k, v,
+                      work=lambda: cost.flash_attention(q, k, v, causal, window))
 
     @staticmethod
     def backward(ctx, grad):
@@ -168,7 +182,8 @@ class _FlashAttention(torch.autograd.Function):
             return _fa.chunk_attn_scan(q, k, v, q_offset=0,
                                        kv_chunk=min(ctx.kv_chunk, k.shape[1]), **ctx.opts)
 
-        return _plain_grads(ctx, scan, grad) + (None,) * 4
+        with cost.region("flash_attention"):
+            return _plain_grads(ctx, scan, grad) + (None,) * 4
 
 
 def rwkv_time_mix(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -194,7 +209,8 @@ class _RWKVTimeMix(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return _plain_grads(ctx, _rw.rwkv_time_mix_ref, grad)
+        with cost.region("rwkv_time_mix"):
+            return _plain_grads(ctx, _rw.rwkv_time_mix_ref, grad)
 
 
 def _plain_grads(ctx, plain, grad) -> tuple:

@@ -24,7 +24,7 @@ import functools
 
 import torch
 
-from . import build
+from . import build, cost
 
 NAME = "rwkv_chunk"
 CHUNK = 64
@@ -64,12 +64,9 @@ def time_mix_chunked(rf, kf, vf, logw, u, s0, *, chunk: int):
         z = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))  # noqa: E731
         rf, kf, vf, logw = z(rf), z(kf), z(vf), z(logw)
     tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.float32, device=rf.device), -1)
-    s_in = s0
-    outs = []
-    for c in range(n_chunks):
-        sl = slice(c * chunk, (c + 1) * chunk)
-        r, k, v = (t[:, sl].to(torch.float32) for t in (rf, kf, vf))
-        lw = logw[:, sl].to(torch.float32)
+
+    def step(r, k, v, lw, u, s_in):
+        r, k, v, lw = (t.to(torch.float32) for t in (r, k, v, lw))
         cum = torch.cumsum(lw, dim=1)                             # c_t (inclusive)
         cum_prev = cum - lw                                       # c_{t-1}
         o_inter = torch.einsum("bthk,bhkv->bthv", r * torch.exp(cum_prev), s_in)
@@ -81,9 +78,21 @@ def time_mix_chunked(rf, kf, vf, logw, u, s0, *, chunk: int):
         o_diag = torch.einsum("bthk,hk,bthk->bth", r, u, k)[..., None] * v
         decay_to_end = torch.exp(cum[:, -1:] - cum)               # c_C - c_s
         a_end = torch.exp(cum[:, -1])                             # (B, H, Dh)
-        s_in = a_end[..., None] * s_in + torch.einsum("bshk,bshv->bhkv",
-                                                      k * decay_to_end, v)
-        outs.append((o_inter + o_intra + o_diag).to(out_dtype))
+        s_out = a_end[..., None] * s_in + torch.einsum("bshk,bshv->bhkv",
+                                                       k * decay_to_end, v)
+        return (o_inter + o_intra + o_diag).to(out_dtype), s_out
+
+    if rf.device.type == "meta":
+        # only shapes flow: one chunk traced, counted n_chunks times
+        o, s_in = cost.repeated(step, n_chunks, *(t[:, :chunk] for t in (rf, kf, vf, logw)),
+                                u, s0)
+        return torch.cat([o] * n_chunks, dim=1)[:, :s], s_in
+    s_in = s0
+    outs = []
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        o, s_in = step(rf[:, sl], kf[:, sl], vf[:, sl], logw[:, sl], u, s_in)
+        outs.append(o)
     return torch.cat(outs, dim=1)[:, :s], s_in
 
 

@@ -18,20 +18,28 @@ gradient of each leaf is stochastically sign-quantized (Q_s with K = mean
 |g|, a Bernoulli(sigmoid(g / K)) sign per entry, keyed per leaf) -- the
 paper's uplink structure inside the trainer.
 
-The reference's mesh, shardings and abstract init (``opt_state_specs``,
-``batch_specs``, ``shardings_for``, ``build_setup``'s FSDP specs) have no
-counterpart yet: the port trains on one device.
+Sharding metadata, as the reference's: ``opt_state_specs`` and
+``batch_specs`` give the partition specs of the optimizer state and the
+batch, ``build_setup`` everything the dry run traces (the model, the
+optimizer, the parameters and optimizer state on the ``meta`` device with
+their FSDP specs, the step function), ``shardings_for`` a spec tree on a
+mesh.  The port trains on one card: ``Trainer`` takes a mesh and refuses
+one of more than one device.  On ``meta`` parameters the step traces one
+microbatch and counts it ``microbatches`` times (``kernels.cost.repeat``).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import convert, optim, prng, resolve_device
-from repro_torch.models import transformer as T
+from repro_torch.kernels import cost
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models import sharding, transformer as T
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.sharding import P, is_spec
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 ADAFACTOR_THRESHOLD = 100e9
@@ -45,6 +53,37 @@ def choose_optimizer(cfg: ArchConfig, lr: float = 1e-4) -> Tuple[str, optim.Opti
     if cfg.params_count() > ADAFACTOR_THRESHOLD:
         return "adafactor", optim.adafactor_like(lr)
     return "adam", optim.adam(lr)
+
+
+def _spec_entries(spec: P, ndim: int):
+    return list(spec) + [None] * (ndim - len(spec))
+
+
+def opt_state_specs(opt_name: str, params, param_specs):
+    """Spec tree matching the optimizer state's structure: Adam's
+    ``AdamState(mu, nu, step)``, momentum's velocities, adafactor's per-leaf
+    (row, col) factor pairs (a vector keeps its spec), sgd's ``()``."""
+    if opt_name == "adam":
+        return optim.AdamState(mu=param_specs, nu=param_specs, step=P())
+    if opt_name == "sgd":
+        return ()
+    if opt_name == "momentum":
+        return param_specs
+    if opt_name == "adafactor":
+        flat_specs = tree_leaves(param_specs, is_leaf=is_spec)
+        out = []
+        for leaf, spec in zip(tree_leaves(params), flat_specs):
+            ent = _spec_entries(spec, leaf.dim())
+            out.append((P(*ent[:-1]), P(*(ent[:-2] + ent[-1:]))) if leaf.dim() >= 2
+                       else P(*ent))
+        return tree_unflatten(params, out)
+    raise ValueError(opt_name)
+
+
+def batch_specs(cfg: ArchConfig, batch_tree) -> Dict[str, P]:
+    """Each input's leading (batch) dim over the batch axes."""
+    b = sharding.batch_axes()
+    return {name: P(b, *([None] * (leaf.dim() - 1))) for name, leaf in batch_tree.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -93,6 +132,8 @@ def make_train_step(model: T.Model, opt: optim.Optimizer, *, microbatches: int =
     float32 zeros, and the sums and the summed loss are divided by
     ``microbatches``, as the reference's ``lax.scan`` does.  The returned
     parameters are new tensors; the step does not write into its inputs.
+    On ``meta`` parameters one microbatch is traced, counted
+    ``microbatches`` times.
     """
     if grad_compression not in (None, "stochastic_sign"):
         raise ValueError(f"grad_compression={grad_compression!r}: None or 'stochastic_sign'")
@@ -106,14 +147,16 @@ def make_train_step(model: T.Model, opt: optim.Optimizer, *, microbatches: int =
                   for k, v in batch.items()}
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
-        for i in range(microbatches):
-            loss = loss_fn(params, {k: v[i] for k, v in mbatch.items()})
-            mb_grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                           materialize_grads=True)
-            loss_sum = loss_sum + loss.detach()
-            for acc, g in zip(grads, mb_grads):
-                acc.add_(g)
-            del loss, mb_grads
+        traced = 1 if dev.type == "meta" else microbatches
+        with cost.repeat(microbatches // traced):
+            for i in range(traced):
+                loss = loss_fn(params, {k: v[i] for k, v in mbatch.items()})
+                mb_grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                               materialize_grads=True)
+                loss_sum = loss_sum + loss.detach()
+                for acc, g in zip(grads, mb_grads):
+                    acc.add_(g)
+                del loss, mb_grads
         loss = loss_sum / microbatches
         for g in grads:
             g.div_(microbatches)
@@ -144,8 +187,42 @@ def batch_tensors(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tenso
 
 
 # ---------------------------------------------------------------------------
-# Trainer
+# Setup without allocation, and the trainer
 # ---------------------------------------------------------------------------
+
+
+class TrainSetup(NamedTuple):
+    model: T.Model
+    opt_name: str
+    opt: optim.Optimizer
+    param_specs: Any
+    opt_specs: Any
+    params_sds: Any         # the stacked parameters, on ``meta``
+    opt_sds: Any            # ``opt.init(params_sds)``, on ``meta``
+    step_fn: Callable
+
+
+def build_setup(cfg: ArchConfig, *, lr: float = 1e-4, microbatches: int = 1,
+                kv_chunk: int = 1024, fsdp: bool = True,
+                grad_compression: Optional[str] = None) -> TrainSetup:
+    """Everything needed to trace a train step, allocating nothing: the
+    specs are the active mesh's (``sharding.set_mesh``)."""
+    model = T.build(cfg)
+    opt_name, opt = choose_optimizer(cfg, lr)
+    params_sds, param_specs = T.abstract_init(model)
+    if fsdp:
+        param_specs = T.fsdp_specs(params_sds, param_specs)
+    opt_sds = opt.init(params_sds)
+    o_specs = opt_state_specs(opt_name, params_sds, param_specs)
+    step_fn = make_train_step(model, opt, microbatches=microbatches, kv_chunk=kv_chunk,
+                              grad_compression=grad_compression)
+    return TrainSetup(model, opt_name, opt, param_specs, o_specs, params_sds, opt_sds,
+                      step_fn)
+
+
+def shardings_for(mesh: Mesh, specs):
+    """Each spec of the tree on ``mesh`` (``sharding.Sharding``)."""
+    return tree_map(lambda sp: sharding.Sharding(mesh, sp), specs, is_leaf=is_spec)
 
 
 class Trainer:
@@ -158,9 +235,15 @@ class Trainer:
     ``split`` per step.
     """
 
-    def __init__(self, cfg: ArchConfig, *, lr: float = 1e-4, microbatches: int = 1,
-                 kv_chunk: int = 1024, grad_compression: Optional[str] = None,
-                 seed: int = 0, params=None, device="cuda"):
+    def __init__(self, cfg: ArchConfig, mesh: Optional[Mesh] = None, *, lr: float = 1e-4,
+                 microbatches: int = 1, kv_chunk: int = 1024,
+                 grad_compression: Optional[str] = None, seed: int = 0, params=None,
+                 device="cuda"):
+        if mesh is not None and mesh.size > 1:
+            raise ValueError(f"the port trains on one device; mesh {mesh.shape} has "
+                             f"{mesh.size}")
+        self.mesh = mesh
+        sharding.set_mesh(mesh)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = T.build(cfg)
@@ -199,6 +282,7 @@ def main(argv=None) -> int:
     import repro_torch.configs as configs
     from repro_torch import checkpoint
     from repro_torch.data import batches_for
+    from repro_torch.launch.mesh import make_host_mesh
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-1.7b", choices=list(configs.ALIASES))
@@ -222,7 +306,8 @@ def main(argv=None) -> int:
         cfg = cfg.reduced()
     print(f"training {cfg.name}: {cfg.params_count()/1e6:.1f}M params")
 
-    trainer = Trainer(cfg, lr=args.lr, microbatches=args.microbatches, kv_chunk=args.seq,
+    trainer = Trainer(cfg, mesh=make_host_mesh(), lr=args.lr,
+                      microbatches=args.microbatches, kv_chunk=args.seq,
                       grad_compression="stochastic_sign" if args.bicompfl else None,
                       device=args.device)
     t0 = time.time()

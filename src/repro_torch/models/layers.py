@@ -4,8 +4,11 @@
 Parameters are plain dictionaries of tensors with the reference's names
 and layouts (a projection ``w`` is ``(d_in, d_out)`` and applies as
 ``x @ w``), so ``convert.model_params`` carries the reference's values
-across as they are.  The reference's ``sharding.constraint`` layout hints
-do no arithmetic and have no counterpart: the port runs on one card.
+across as they are.  Each ``init_*`` has a ``*_specs`` beside it that
+gives the reference's partition specs for its parameters
+(``models.sharding``; the dry run reads them).  The reference's
+``sharding.constraint`` layout hints do no arithmetic and have no
+counterpart: the port runs on one card.
 
 ``attention`` (training and prefill) goes through ``kernels.ops
 .flash_attention``, once per call: the CUDA kernel on the card, the port of
@@ -26,15 +29,33 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attn import NEG_INF
 from .config import ArchConfig
+from .sharding import P
 
 
 def dtype_of(cfg: ArchConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` in the inits to build parameters
+    on the ``meta`` device: ``normal`` and ``uniform`` draw nothing from it
+    and give storage-less tensors of the shape and dtype (torch has no meta
+    generator)."""
+    device = torch.device("meta")
+
+
 def normal(gen: torch.Generator, shape, std: float, dtype: torch.dtype) -> torch.Tensor:
     """``N(0, std^2)`` drawn in f32 from ``gen`` on its device, then cast."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     return (torch.randn(shape, generator=gen, device=gen.device) * std).to(dtype)
+
+
+def uniform(gen: torch.Generator, shape) -> torch.Tensor:
+    """``U[0, 1)`` f32 drawn from ``gen`` on its device."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.rand(shape, generator=gen, device=gen.device)
 
 
 # ---------------------------------------------------------------------------
@@ -122,6 +143,30 @@ def init_attn(gen: torch.Generator, cfg: ArchConfig):
         params["q_norm"] = torch.zeros((dh,), dtype=dt, device=gen.device)
         params["k_norm"] = torch.zeros((dh,), dtype=dt, device=gen.device)
     return params
+
+
+def attn_specs(cfg: ArchConfig):
+    """``init_attn``'s specs: q/k/v outputs and o's input over ``model``."""
+    specs = {"wq": P(None, "model"), "wk": P(None, "model"),
+             "wv": P(None, "model"), "wo": P("model", None)}
+    if cfg.qk_norm:
+        specs["q_norm"] = P(None)
+        specs["k_norm"] = P(None)
+    return specs
+
+
+def kv_head_spec(cfg: ArchConfig, model_size: int, *, for_cache: bool = False) -> P:
+    """Spec for a (..., Hkv, Dh) pair of trailing axes.
+
+    GQA kv-head counts (8) are often smaller than the model axis (16).  For
+    the decode cache (memory-bound) head_dim is sharded instead; training
+    and prefill activations replicate the kv heads.
+    """
+    if cfg.n_kv_heads % max(model_size, 1) == 0:
+        return P("model", None)
+    if for_cache and cfg.head_dim % max(model_size, 1) == 0:
+        return P(None, "model")
+    return P(None, None)
 
 
 def _qkv(cfg: ArchConfig, params, x: torch.Tensor):
@@ -252,6 +297,12 @@ def init_ffn(gen: torch.Generator, cfg: ArchConfig, d_ff: Optional[int] = None):
         "w_up": normal(gen, (d, ff), d ** -0.5, dt),
         "w_down": normal(gen, (ff, d), ff ** -0.5, dt),
     }
+
+
+def ffn_specs(cfg: ArchConfig):
+    """``init_ffn``'s specs: the hidden dim over ``model``."""
+    return {"w_gate": P(None, "model"), "w_up": P(None, "model"),
+            "w_down": P("model", None)}
 
 
 def ffn(params, x: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,9 @@ here, the same recurrence in the same order.  The step's elementwise inputs
 (``exp(dt A)`` and ``dt B x``) are formed for ``SCAN_CHUNK`` tokens at a
 time, so that a token costs the update ``h = exp(dt A) h + dt B x`` and the
 read-out ``C h`` (``_ssm_step``, which ``decode_step`` runs too).  No TPU
-kernel stands behind the scan.
+kernel stands behind the scan.  On the ``meta`` device (the dry run) one
+token step of each chunk is traced and counted as the chunk's steps
+(``kernels.cost.repeated``).
 """
 from __future__ import annotations
 
@@ -23,8 +25,10 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import cost
 from .config import ArchConfig
-from .layers import dtype_of, normal
+from .layers import dtype_of, normal, uniform
+from .sharding import P
 
 SCAN_CHUNK = 256
 
@@ -46,7 +50,7 @@ def init_mamba(gen: torch.Generator, cfg: ArchConfig):
     dt = dtype_of(cfg)
     dev = gen.device
     lo, hi = math.log(1e-3), math.log(1e-1)
-    u = lo + (hi - lo) * torch.rand((di,), generator=gen, device=dev)
+    u = lo + (hi - lo) * uniform(gen, (di,))
     return {
         "in_proj": normal(gen, (d, 2 * di), d ** -0.5, dt),
         "conv_w": normal(gen, (dc, di), dc ** -0.5, dt),
@@ -58,6 +62,18 @@ def init_mamba(gen: torch.Generator, cfg: ArchConfig):
                            .expand(di, ds).contiguous()),
         "D": torch.ones((di,), dtype=torch.float32, device=dev),
         "out_proj": normal(gen, (di, d), di ** -0.5, dt),
+    }
+
+
+def mamba_specs(cfg: ArchConfig):
+    """``init_mamba``'s specs: d_inner over ``model`` (the inner channels
+    are independent, so the scan needs no cross-shard communication)."""
+    return {
+        "in_proj": P(None, "model"), "conv_w": P(None, "model"),
+        "conv_b": P("model"), "x_proj": P("model", None),
+        "dt_proj_w": P(None, "model"), "dt_proj_b": P("model"),
+        "A_log": P("model", None), "D": P("model"),
+        "out_proj": P("model", None),
     }
 
 
@@ -121,10 +137,15 @@ def mamba_block(cfg: ArchConfig, params, x: torch.Tensor, state: MambaState):
     for t0 in range(0, s, SCAN_CHUNK):
         t1 = min(t0 + SCAN_CHUNK, s)
         da, dbx = _discretize(dt[:, t0:t1], a, xf[:, t0:t1], bb[:, t0:t1])
+        if x.device.type == "meta":
+            # only shapes flow: one token step traced, counted t1 - t0 times
+            h, y_t = cost.repeated(_ssm_step, t1 - t0, h, da[:, 0], dbx[:, 0], cc[:, t0])
+            ys.append(y_t[:, None].expand(b, t1 - t0, y_t.shape[-1]))
+            continue
         for t in range(t1 - t0):
             h, y_t = _ssm_step(h, da[:, t], dbx[:, t], cc[:, t0 + t])
-            ys.append(y_t)
-    y = torch.stack(ys, dim=1) + xf * params["D"]
+            ys.append(y_t[:, None])
+    y = torch.cat(ys, dim=1) + xf * params["D"]
     y = (y.to(x.dtype) * F.silu(z)) @ params["out_proj"]
     if s >= dc - 1:
         conv_state = xi[:, s - (dc - 1):].to(state.conv.dtype)

@@ -29,8 +29,23 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import sharding
 from .config import ArchConfig
 from .layers import dtype_of, normal
+from .sharding import P
+
+
+def _expert_ff_axis(cfg: ArchConfig) -> Tuple:
+    """(expert_axis_spec, ff_axis_spec) for (E, d, ff) expert weights:
+    experts over ``model`` and the FFN hidden dim over ``data`` where each
+    divides (a 1T-parameter MoE fits only with this 2-D sharding)."""
+    e = cfg.n_experts
+    model = sharding.axis_size("model")
+    data = sharding.axis_size("data")
+    ff = cfg.moe_d_ff or cfg.d_ff
+    e_ax = "model" if (model > 1 and e % model == 0) else None
+    ff_ax = "data" if (data > 1 and ff % data == 0) else None
+    return e_ax, ff_ax
 
 
 def init_moe(gen: torch.Generator, cfg: ArchConfig):
@@ -45,6 +60,8 @@ def init_moe(gen: torch.Generator, cfg: ArchConfig):
 
     def experts(shape, std):
         out = torch.empty((e, *shape), dtype=dt, device=gen.device)
+        if gen.device.type == "meta":
+            return out
         for i in range(e):
             out[i] = normal(gen, shape, std, dt)
         return out
@@ -63,6 +80,17 @@ def init_moe(gen: torch.Generator, cfg: ArchConfig):
             "sh_down": normal(gen, (se_ff, d), se_ff ** -0.5, dt),
         })
     return params
+
+
+def moe_specs(cfg: ArchConfig):
+    """``init_moe``'s specs (on the active mesh: ``_expert_ff_axis``)."""
+    e_ax, ff_ax = _expert_ff_axis(cfg)
+    specs = {"router": P(None, None), "w_gate": P(e_ax, None, ff_ax),
+             "w_up": P(e_ax, None, ff_ax), "w_down": P(e_ax, ff_ax, None)}
+    if cfg.shared_experts:
+        specs.update({"sh_gate": P(None, "model"), "sh_up": P(None, "model"),
+                      "sh_down": P("model", None)})
+    return specs
 
 
 # Below this group size every token gets a guaranteed place (capacity ==
@@ -105,7 +133,10 @@ def route(cfg: ArchConfig, router: torch.Tensor, xg: torch.Tensor) -> Routing:
     gate_vals, gate_idx = top_k(probs, k)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
     c = _capacity(cfg, g)
-    onehot = F.one_hot(gate_idx, e).to(torch.float32)             # (n, G, k, E)
+    # a compare with arange(E), not F.one_hot, which reads the largest
+    # index back to the host to check it (``.item()``: a sync on the card,
+    # an error on ``meta``)
+    onehot = (gate_idx[..., None] == torch.arange(e, device=xg.device)).to(torch.float32)
     # Place of each (token, slot) in its expert's queue: a float32 cumsum
     # over the (token, slot) axis flattened token-major, exact up to 2^24.
     pos = torch.cumsum(onehot.reshape(n, g * k, e), dim=1).reshape(n, g, k, e) - 1.0

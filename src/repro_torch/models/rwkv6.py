@@ -32,6 +32,7 @@ from repro_torch.kernels.rwkv_chunk import time_mix_chunked as _time_mix_chunked
 from repro_torch.kernels.rwkv_chunk import time_mix_sequential as _time_mix_sequential
 from .config import ArchConfig
 from .layers import dtype_of, normal
+from .sharding import P
 
 DECAY_LORA = 64
 
@@ -69,6 +70,20 @@ def init_rwkv(gen: torch.Generator, cfg: ArchConfig):
         "ln_x": torch.zeros((d,), dtype=dt, device=dev),
         "cm_k": normal(gen, (d, cfg.d_ff), std, dt),
         "cm_v": normal(gen, (cfg.d_ff, d), cfg.d_ff ** -0.5, dt),
+    }
+
+
+def rwkv_specs(cfg: ArchConfig):
+    """``init_rwkv``'s specs: heads over ``model``, the FFN hidden too."""
+    return {
+        "mu": P(None, None), "mu_cm": P(None, None),
+        "w_r": P(None, "model"), "w_k": P(None, "model"),
+        "w_v": P(None, "model"), "w_g": P(None, "model"),
+        "w_o": P("model", None),
+        "decay_w1": P(None, None), "decay_w2": P(None, "model"),
+        "decay_bias": P("model"), "bonus_u": P("model", None),
+        "ln_x": P(None),
+        "cm_k": P(None, "model"), "cm_v": P("model", None),
     }
 
 

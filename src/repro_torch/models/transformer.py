@@ -29,6 +29,14 @@ autograd on, each layer after the prefix wrapped in
 matmul outputs have no counterpart, and no config uses it).  The trainer
 (``launch/train.py``) holds the reference's stacked tree and hands these
 functions per-layer views of it (``convert.layer_views``).
+
+Sharding metadata (the dry run's, ``launch/dryrun.py``): ``param_specs``
+is the reference's spec tree for the stacked layout, ``abstract_init``
+that layout's parameters on the ``meta`` device (shapes and dtypes, no
+storage), ``fsdp_specs`` the ZeRO-3 refinement, and ``cache_entry_spec`` /
+``cache_specs`` the decode caches' specs (the reference's stacked tree; a
+layer of the port's cache list takes its stacked spec less the leading
+``None``).
 """
 from __future__ import annotations
 
@@ -38,12 +46,15 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 from . import mamba as mamba_mod
 from . import moe as moe_mod
 from . import rwkv6 as rwkv_mod
+from . import sharding
 from .config import ArchConfig
-from .layers import _kv_groups, attention, decode_attention, dtype_of, ffn, init_attn, \
-    init_ffn, normal, rmsnorm
+from .layers import MetaGenerator, _kv_groups, attention, attn_specs, decode_attention, \
+    dtype_of, ffn, ffn_specs, init_attn, init_ffn, kv_head_spec, normal, rmsnorm
+from .sharding import P, is_spec
 
 
 # ---------------------------------------------------------------------------
@@ -116,6 +127,30 @@ def _patch_rwkv_lns(cfg: ArchConfig, params: Dict, plan) -> None:
                                          device=params["ln1"].device)
 
 
+def layer_specs(cfg: ArchConfig, plan) -> Dict[str, Any]:
+    """One layer's specs, the tree of ``init_layer`` + ``_patch_rwkv_lns``."""
+    mixer, ffn_kind = plan
+    specs: Dict[str, Any] = {"ln1": P(None)}
+    if mixer == "attn":
+        specs["mixer"] = attn_specs(cfg)
+    elif mixer == "mamba":
+        specs["mixer"] = mamba_mod.mamba_specs(cfg)
+    elif mixer == "rwkv6":
+        specs["mixer"] = rwkv_mod.rwkv_specs(cfg)
+        specs["ln2_rwkv"] = P(None)
+    else:
+        raise ValueError(mixer)
+    if ffn_kind != "rwkv_ffn":
+        specs["ln2"] = P(None)
+        if ffn_kind == "dense":
+            specs["ffn"] = ffn_specs(cfg)
+        elif ffn_kind == "moe":
+            specs["ffn"] = moe_mod.moe_specs(cfg)
+        else:
+            raise ValueError(ffn_kind)
+    return specs
+
+
 def apply_layer(cfg: ArchConfig, plan, params, x: torch.Tensor, positions: torch.Tensor,
                 *, kv_chunk: int = 1024) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Training / prefill layer.  Returns (x, aux_loss); the aux loss is the
@@ -184,22 +219,92 @@ def init_params(model: Model, seed: int = 0, device="cuda") -> Dict[str, Any]:
     on ``device`` in the config's dtype.  Not the reference's values (those
     are threefry draws): ``convert.model_params`` carries them across.
     A config with frame inputs (``embed_inputs=False``) has no ``embed``."""
-    cfg = model.cfg
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
+    return _init(model, gen, layer_plans(model))
+
+
+def _init(model: Model, gen, plans) -> Dict[str, Any]:
+    """``{embed, layers, final_norm, head}`` with one layer per plan."""
+    cfg = model.cfg
     d, v = cfg.d_model, cfg.vocab
     dt = dtype_of(cfg)
     params: Dict[str, Any] = {}
     if cfg.embed_inputs:
         params["embed"] = normal(gen, (v, d), d ** -0.5, dt)
     params["layers"] = []
-    for plan in layer_plans(model):
+    for plan in plans:
         p = init_layer(gen, cfg, plan)
         _patch_rwkv_lns(cfg, p, plan)
         params["layers"].append(p)
-    params["final_norm"] = torch.zeros((d,), dtype=dt, device=dev)
+    params["final_norm"] = torch.zeros((d,), dtype=dt, device=gen.device)
     params["head"] = normal(gen, (d, v), d ** -0.5, dt)
     return params
+
+
+def param_specs(model: Model) -> Dict[str, Any]:
+    """The reference's spec tree for the stacked layout ``{embed, prefix,
+    pattern, final_norm, head}`` (``convert.stack_model_params``), on the
+    active mesh: each pattern leaf's spec gains a leading ``None`` for its
+    stacked ``n_rep`` axis."""
+    cfg = model.cfg
+    specs: Dict[str, Any] = {}
+    if cfg.embed_inputs:
+        specs["embed"] = sharding.spec_embed()
+    specs["prefix"] = [layer_specs(cfg, plan) for plan in model.prefix]
+    specs["pattern"] = [tree_map(lambda sp: P(None, *sp), layer_specs(cfg, plan),
+                                 is_leaf=is_spec) for plan in model.pattern]
+    specs["final_norm"] = P(None)
+    specs["head"] = sharding.spec_head()
+    return specs
+
+
+def abstract_init(model: Model) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(parameters, specs) without allocating: the stacked tree the trainer
+    holds (``convert.stack_model_params(model, init_params(model))``), each
+    leaf a ``meta`` tensor of its shape and dtype, and ``param_specs``.
+    Nothing is drawn: the inits run on a ``layers.MetaGenerator``, one layer
+    per pattern position, and the stacked leaves are made ``n_rep`` deep."""
+    flat = _init(model, MetaGenerator(), list(model.prefix) + list(model.pattern))
+    n_pre = len(model.prefix)
+    stack = lambda t: torch.empty((model.n_rep,) + tuple(t.shape), dtype=t.dtype,  # noqa: E731
+                                  device="meta")
+    params = {"embed": flat["embed"]} if "embed" in flat else {}
+    params.update(prefix=flat["layers"][:n_pre],
+                  pattern=[tree_map(stack, p) for p in flat["layers"][n_pre:]],
+                  final_norm=flat["final_norm"], head=flat["head"])
+    return params, param_specs(model)
+
+
+def fsdp_specs(params, specs, *, min_size: int = 2 ** 16):
+    """ZeRO-3 refinement: shard one replicated dim of each large leaf on ``data``.
+
+    Picks the largest dim that is currently None and divides the data-axis
+    size; leaves small leaves (norms, biases) replicated.
+    """
+    data = sharding.axis_size("data")
+    if data <= 1:
+        return specs
+
+    def refine(leaf, spec):
+        if not is_spec(spec) or leaf.numel() < min_size:
+            return spec
+        entries = list(spec) + [None] * (leaf.dim() - len(spec))
+        if "data" in entries:
+            return spec
+        cands = [i for i, (ax, n) in enumerate(zip(entries, leaf.shape))
+                 if ax is None and n % data == 0]
+        if not cands:
+            return spec
+        best = max(cands, key=lambda i: leaf.shape[i])
+        entries[best] = "data"
+        return P(*entries)
+
+    flat_specs = tree_leaves(specs, is_leaf=is_spec)
+    flat_params = tree_leaves(params)
+    assert len(flat_specs) == len(flat_params)
+    return tree_unflatten(specs, [refine(leaf, s) for leaf, s in zip(flat_params, flat_specs)],
+                          is_leaf=is_spec)
 
 
 # ---------------------------------------------------------------------------
@@ -293,9 +398,11 @@ def encoder_loss(model: Model, params, batch: Dict[str, torch.Tensor], *,
 
 
 @torch.no_grad()
-def prefill_step(model: Model, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Serving prefill: full forward, last-position logits only (B, 1, V)."""
-    x, _ = _backbone(model, params, batch)
+def prefill_step(model: Model, params, batch: Dict[str, torch.Tensor], *,
+                 kv_chunk: int = 1024) -> torch.Tensor:
+    """Serving prefill: full forward, last-position logits only (B, 1, V).
+    ``kv_chunk`` is the plain attention's chunk (the kernel has none)."""
+    x, _ = _backbone(model, params, batch, kv_chunk=kv_chunk)
     return rmsnorm(x[:, -1:], params["final_norm"]) @ params["head"]
 
 
@@ -324,6 +431,46 @@ def init_cache_entry(cfg: ArchConfig, plan, batch: int, s_max: int, device="cuda
     if mixer == "rwkv6":
         return rwkv_mod.init_rwkv_state(cfg, batch, dt, dev)
     raise ValueError(mixer)
+
+
+def cache_entry_spec(cfg: ArchConfig, plan, *, batch: int = 0):
+    """Cache specs for one layer, in the layout of its cache entry.
+
+    Default: batch over (pod, data), kv heads / head_dim over model.  When
+    the batch does not divide the data axes (the batch-1 long-context
+    shape), the KV sequence dim is sharded over data instead: the
+    sequence-parallel cache layout.
+    """
+    mixer = plan[0]
+    bspec = sharding.batch_axes()
+    data = sharding.axis_size("data") * sharding.axis_size("pod")
+    seq_parallel = batch > 0 and batch % max(data, 1) != 0
+    if seq_parallel:
+        bspec = None
+    if mixer == "attn":
+        hs = kv_head_spec(cfg, sharding.axis_size("model"), for_cache=True)
+        sp = P(bspec, "data" if seq_parallel else None, *hs)
+        if cfg.kv_cache_quant:
+            ssp = P(bspec, "data" if seq_parallel else None, hs[0], None)
+            return (sp, sp, ssp, ssp)
+        return (sp, sp)
+    if mixer == "mamba":
+        return mamba_mod.MambaState(conv=P(bspec, None, "model"), ssm=P(bspec, "model", None))
+    if mixer == "rwkv6":
+        return rwkv_mod.RWKVState(s=P(bspec, "model", None, None), x_prev_tm=P(bspec, None),
+                                  x_prev_cm=P(bspec, None))
+    raise ValueError(mixer)
+
+
+def cache_specs(model: Model, *, batch: int = 0) -> Dict[str, List]:
+    """The reference's stacked cache specs ``{prefix, pattern}``: a pattern
+    entry's specs gain a leading ``None`` for its ``n_rep`` axis."""
+    cfg = model.cfg
+    return {
+        "prefix": [cache_entry_spec(cfg, plan, batch=batch) for plan in model.prefix],
+        "pattern": [tree_map(lambda sp: P(None, *sp), cache_entry_spec(cfg, plan, batch=batch),
+                             is_leaf=is_spec) for plan in model.pattern],
+    }
 
 
 def init_cache(model: Model, batch: int, s_max: int, device="cuda") -> List:

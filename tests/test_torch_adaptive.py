@@ -8,6 +8,8 @@ engine runs in host mode.  Integers (plans, indices, bits) must match
 exactly; floats within a tolerance stated where it is used.  The CUDA
 kernels themselves run only on the card (``test_torch_cuda.py``).
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -98,8 +100,14 @@ def test_bernoulli_kl_ops_cpu_take_plain_versions_and_count_nothing():
     for f, ref in zip(fns, (tkl.rows_ref, tkl.total_ref, tkl.profile_ref)):
         np.testing.assert_array_equal(f(q, p).numpy(), ref(q, p).numpy())
     assert [f.launches for f in fns] == before
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        tops.bernoulli_kl_profile(q.to("meta"), p.to("meta"))
+    # meta tensors take the plain route (shapes only, no launch); any other
+    # device but cpu and cuda is refused
+    out = tops.bernoulli_kl_profile(q.to("meta"), p.to("meta"))
+    assert out.device.type == "meta" and out.shape == (300,)
+    assert [f.launches for f in fns] == before
+    with pytest.raises(ValueError, match="cpu, meta or cuda"):
+        tops._route(tops.bernoulli_kl_profile, None, None,
+                    types.SimpleNamespace(device=torch.device("xpu")))
 
 
 @pytest.mark.parametrize("seed,n,d", [(0, 4, 1472), (1, 10, 500), (2, 3, 33)])

@@ -10,6 +10,8 @@ only the port's dependencies:
 tests.)  The CPU tests in ``test_torch_mrc.py`` tie the plain versions to
 the JAX reference.
 """
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -780,8 +782,8 @@ def test_model_kernel_wrappers_refuse_bad_input(cuda):
         rc.rwkv_time_mix_cuda(r, kk.cpu(), vv, logw, u)
     with pytest.raises(RuntimeError, match="grad"):
         rc.rwkv_time_mix_cuda(r.requires_grad_(), kk, vv, logw, u)
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        ops.rwkv_time_mix(*(t.to("meta") for t in (r, kk, vv, logw, u)))
+    with pytest.raises(ValueError, match="cpu, meta or cuda"):
+        ops._route(ops.rwkv_time_mix, None, None, types.SimpleNamespace(device=torch.device("xpu")))
 
 
 # ---------------------------------------------------------------------------
@@ -1229,3 +1231,43 @@ def test_train_step_on_card_matches_cpu(cuda):
     assert l_card == pytest.approx(l_cpu, rel=1e-5)
     far = sum(int(((a - b).abs() > 1e-5).sum()) for a, b in zip(p_card, p_cpu))
     assert far <= 1e-4 * sum(t.numel() for t in p_cpu), far
+
+
+def test_kernel_wrappers_report_their_work_to_op_cost(cuda):
+    """A kernel launched through ``ops`` inside ``launch.op_cost.OpCost``
+    reports its ``kernels.cost`` formula (the dispatcher sees no ctypes
+    call), once a launch, inside the wrapper's region; the plain route on
+    the CPU reports nothing and is counted op by op instead."""
+    from repro_torch.kernels import cost
+    from repro_torch.launch import op_cost
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(2, 128, 4, 32, generator=gen, device=cuda)
+    k, v = (torch.randn(2, 128, 2, 32, generator=gen, device=cuda) for _ in range(2))
+    r, kk, vv = (torch.randn(1, 64, 2, 64, generator=gen, device=cuda) for _ in range(3))
+    logw = -torch.rand(1, 64, 2, 64, generator=gen, device=cuda)
+    u = torch.randn(2, 64, generator=gen, device=cuda)
+    x, a, b = _logw_inputs(7, 48, 100, seed=1, device=cuda)
+    pq, pp = (torch.rand(3, 1001, generator=gen, device=cuda) for _ in range(2))
+    cases = [("flash_attention", lambda: ops.flash_attention(q, k, v, causal=True, window=16),
+              cost.flash_attention(q, k, v, True, 16)),
+             ("rwkv_time_mix", lambda: ops.rwkv_time_mix(r, kk, vv, logw, u),
+              cost.rwkv_time_mix(r, kk, vv, logw, u)),
+             ("mrc_logw", lambda: ops.mrc_logw(x, a, b), cost.mrc_logw(x, a, b)),
+             ("bernoulli_kl", lambda: ops.bernoulli_kl(pq, pp), cost.bernoulli_kl(pq, pp)),
+             ("bernoulli_kl_total", lambda: ops.bernoulli_kl_total(pq, pp),
+              cost.bernoulli_kl_total(pq, pp)),
+             ("bernoulli_kl_profile", lambda: ops.bernoulli_kl_profile(pq, pp),
+              cost.bernoulli_kl_profile(pq, pp))]
+    for name, call, work in cases:
+        with op_cost.OpCost() as oc:
+            with op_cost.repeat(3):
+                call()
+        torch.cuda.synchronize()
+        assert oc.totals.ops[f"kernel:{name}"] == 3, name
+        assert oc.totals.flops_by_region[name] == 3 * work.flops, name
+        assert oc.totals.flops == 3 * work.flops, name
+    with op_cost.OpCost() as oc:
+        ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=True, window=16)
+    assert "kernel:flash_attention" not in oc.totals.ops
+    assert oc.totals.flops_by_region["flash_attention"] > 0

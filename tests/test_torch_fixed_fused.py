@@ -20,6 +20,8 @@ Held here, where no card is:
 
 The CUDA kernel itself runs only on the card (``test_torch_cuda.py``).
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -188,9 +190,15 @@ def test_ops_mrc_fixed_encode_on_the_cpu_is_the_plain_version_and_counts_nothing
     want = mw.mrc_fixed_encode_ref(keys, sels, pc, a, b, 32)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
     assert ops.mrc_fixed_encode.launches == before
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        ops.mrc_fixed_encode(keys.to("meta"), sels.to("meta"), pc.to("meta"), a.to("meta"),
-                             b.to("meta"), 32)
+    # meta tensors take the plain route (shapes only, no launch); any other
+    # device but cpu and cuda is refused
+    idx, sample, logw = ops.mrc_fixed_encode(keys.to("meta"), sels.to("meta"), pc.to("meta"),
+                                             a.to("meta"), b.to("meta"), 32)
+    assert sample.device.type == "meta" and sample.shape == pc.shape
+    assert ops.mrc_fixed_encode.launches == before
+    with pytest.raises(ValueError, match="cpu, meta or cuda"):
+        ops._route(ops.mrc_fixed_encode, None, None,
+                   types.SimpleNamespace(device=torch.device("xpu")))
 
 
 def test_kernel_wrapper_refuses_cpu_tensors_and_bad_shapes():

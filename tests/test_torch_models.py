@@ -8,6 +8,7 @@ them.  Every tolerance is stated where it is used, with its reason.
 """
 import dataclasses
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -483,8 +484,15 @@ def test_kernel_wrappers_count_no_launch_on_the_cpu():
     r, k, v, logw, u = (_t(a) for a in _streams(s=64))
     ops.rwkv_time_mix(r, k, v, logw, u)
     assert (ops.flash_attention.launches, ops.rwkv_time_mix.launches) == before
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        ops.flash_attention(r.to("meta"), r.to("meta"), r.to("meta"))
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        ops.rwkv_time_mix(*(t.to("meta") for t in (r, k, v, logw, u)))
+    # meta tensors take the plain route (only shapes flow; the dry run's
+    # trace); any device but cpu, meta and cuda raises
+    out = ops.flash_attention(r.to("meta"), r.to("meta"), r.to("meta"))
+    assert out.device.type == "meta" and out.shape == r.shape
+    out = ops.rwkv_time_mix(*(t.to("meta") for t in (r, k, v, logw, u)))
+    assert out.device.type == "meta" and out.shape == r.shape
+    assert (ops.flash_attention.launches, ops.rwkv_time_mix.launches) == before
+    elsewhere = types.SimpleNamespace(device=torch.device("xpu"))
+    for fn in (ops.flash_attention, ops.rwkv_time_mix):
+        with pytest.raises(ValueError, match="cpu, meta or cuda"):
+            ops._route(fn, None, None, elsewhere)
     assert rc.CHUNK == 64 and fa.NEG_INF == JL.NEG_INF

@@ -4,6 +4,8 @@ Integer outputs (indices, samples, block plans) must match exactly; float
 outputs within a tolerance stated where it is used.  The CUDA kernel itself
 runs only on the card: its tests are in ``test_torch_cuda.py``.
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -66,10 +68,16 @@ def test_ops_mrc_logw_cpu_takes_plain_version_and_counts_nothing():
 
 
 def test_ops_mrc_logw_refuses_other_devices():
+    """Any device but cpu, meta and cuda is refused; meta tensors take the
+    plain route (only shapes flow: the dry run's trace)."""
     x = torch.empty(2, 4, 8, device="meta")
     a = torch.empty(2, 8, device="meta")
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        tops.mrc_logw(x, a, a)
+    before = tops.mrc_logw.launches
+    out = tops.mrc_logw(x, a, a)
+    assert out.device.type == "meta" and out.shape == (2, 4)
+    assert tops.mrc_logw.launches == before
+    with pytest.raises(ValueError, match="cpu, meta or cuda"):
+        tops._route(tops.mrc_logw, None, None, types.SimpleNamespace(device=torch.device("xpu")))
 
 
 def test_bernoulli_helpers_match_reference():
