@@ -9,8 +9,9 @@ Phases (each one fails the run with a non-zero exit; nothing is swallowed):
 2. build the hand-written CUDA kernels from this checkout's sources, in
    parallel (one ``nvcc`` per source), and print the build times, the
    ``ptxas`` reports and a line per kernel (registers, spills, static
-   shared memory); count the ``HGMMA`` (wgmma) instructions in the flash
-   library's SASS, which must not be 0;
+   shared memory); count the ``HGMMA`` (wgmma) instructions in each flash
+   kernel's SASS (the bf16 ``flash_attn_wgmma`` and the f32 split-TF32
+   ``flash_attn_tf32``), which must not be 0 for either;
 3. hold each kernel, through the routing wrapper the main paths call
    (``kernels.ops``), against its plain PyTorch version on the card, at the
    main paths' shapes (round 0 of the quickstart at full width for the KL
@@ -82,8 +83,12 @@ Phases (each one fails the run with a non-zero exit; nothing is swallowed):
    with the same timings and bounds as phase 3 and
    ``scaled_dot_product_attention`` as attention's library yardstick;
    also at HuBERT's forward shape, (2, 4096, 16 heads, 16 kv heads, 80),
-   non-causal, in bf16 (timed, bound and SDPA) and f32, and at two small
-   odd Dh-80 shapes (non-causal with Skv 450, causal with GQA);
+   non-causal, in bf16 and f32 (both timed, bound and SDPA), and at two
+   small odd Dh-80 shapes (non-causal with Skv 450, causal with GQA); and
+   at the training shape (2, 1024, 16, 8, 128), causal, in bf16 and in f32
+   (timed: the f32 kernel's main path).  The f32 kernel's bound is its
+   split-TF32 work, three TF32 products for each f32 one at 495 TFLOP/s
+   (the 67 TFLOP/s of f32 on the CUDA cores is reported beside it);
 8. prefill, bf16, full width and depth: ``transformer.prefill_step`` on
    (2, 4096) seeded tokens for ``qwen3-1.7b`` (28 layers) and
    ``rwkv6-1.6b`` (24 layers), counts set to 0 just before and read just
@@ -233,7 +238,8 @@ from repro_torch.kernels.segment_logw import segment_logw_ref  # noqa: E402
 from repro_torch import configs, train_100m  # noqa: E402
 from repro_torch.data import batches_for  # noqa: E402
 from repro_torch.launch import dryrun, op_cost, train as train_mod  # noqa: E402
-from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16, PEAK_FLOPS_F32  # noqa: E402
+from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16, PEAK_FLOPS_F32, \
+    PEAK_FLOPS_TF32  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh  # noqa: E402
 from repro_torch.launch.serve import Request, Server  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
@@ -246,6 +252,9 @@ ROUNDS = 5
 # H100 SXM, NVIDIA data sheet (``launch/mesh.py``): HBM3, f32 outside the
 # tensor cores, bf16 tensor cores dense.
 HBM_BYTES_PER_S, FP32_FLOPS_PER_S, BF16_FLOPS_PER_S = HBM_BW, PEAK_FLOPS_F32, PEAK_FLOPS_BF16
+# The f32 flash kernel's rate: each f32 product is three TF32 products
+# (a_hi b_hi + a_hi b_lo + a_lo b_hi) on the tensor cores, dense.
+TF32_SPLIT_FLOPS_PER_S = PEAK_FLOPS_TF32 / 3
 # fp32 S-term sums in another order than the plain version's GEMV: a few
 # ulp of the partial sums (|logW| here is O(10..100)).
 LOGW_RTOL, LOGW_ATOL = 1e-5, 1e-4
@@ -353,7 +362,7 @@ extern "C" __global__ void index_probe(float* out, uint2 key, unsigned n) {
 # data sheet's 67 TFLOP/s of fp32 (an FFMA counted as two operations).
 ISSUE_LANES_PER_SM, SMS = 128, 132
 # Device function names of each model kernel (bf16 and f32 flash; RWKV's two passes).
-KERNEL_SYMBOLS = {"flash_attention": ("flash_attn_wgmma", "flash_attn_kernel"),
+KERNEL_SYMBOLS = {"flash_attention": ("flash_attn_wgmma", "flash_attn_tf32"),
                   "rwkv_time_mix": ("rwkv_intra", "rwkv_inter")}
 PATHS = {"fixed": None, "adaptive": AdaptiveAllocation, "adaptive-avg": AdaptiveAvgAllocation}
 # The other BiCompFL variants at the quickstart's width: (variant,
@@ -446,11 +455,19 @@ def ptxas_summary(text: str) -> list[str]:
     return lines
 
 
-def sass_count(path: str, opcode: str) -> int:
-    """Instructions of ``opcode`` in a library's SASS (``cuobjdump -sass``)."""
+def flash_hgmma(path: str) -> dict:
+    """``HGMMA`` (wgmma) instructions in the flash library's SASS
+    (``cuobjdump -sass``), summed over the instantiations of each kernel
+    named in ``KERNEL_SYMBOLS``."""
     sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", path], capture_output=True,
                           text=True, check=True).stdout
-    return sum(f" {opcode}" in line for line in sass.splitlines())
+    out = {}
+    for fn, code in sass_functions(sass).items():
+        for name in KERNEL_SYMBOLS["flash_attention"]:
+            if name in fn:
+                out[name] = out.get(name, 0) + sum(ins.split()[1 if ins.startswith("@") else 0]
+                                                   .startswith("HGMMA") for _, ins in code)
+    return out
 
 
 SASS_LINE = re.compile(r"^/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;")
@@ -2037,12 +2054,17 @@ def check_flash(shape, dtype, causal, window, seed, timed, skv=None,
     library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, is_causal=causal, scale=kw["scale"], enable_gqa=True)
     flops, nbytes, _ = kcost.flash_attention(q, k, v, causal, window)
-    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else TF32_SPLIT_FLOPS_PER_S
     log(f"{label}:")
-    return timed_row("flash_attention", shape, err,
-                     lambda: ops.flash_attention(q, k, v, **kw),
-                     lambda: flash_attn.flash_attention_ref(q, k, v, **kw), library,
-                     nbytes, flops, rate, reps=10)
+    row = timed_row("flash_attention", shape, err,
+                    lambda: ops.flash_attention(q, k, v, **kw),
+                    lambda: flash_attn.flash_attention_ref(q, k, v, **kw), library,
+                    nbytes, flops, rate, reps=10)
+    if dtype == torch.float32:
+        row["bound_f32_cuda_cores_ms"] = bound(nbytes, flops, FP32_FLOPS_PER_S)["bound_ms"]
+        log(f"  the same work at 67 TFLOP/s (f32 on the CUDA cores): "
+            f"{row['bound_f32_cuda_cores_ms']:.4f} ms")
+    return row
 
 
 def check_rwkv(shape, seed, timed, strong=False, dtype=torch.float32):
@@ -2091,7 +2113,8 @@ def phase_model_kernels():
     hubert = (PREFILL_BATCH, PREFILL_SEQ, c.n_heads, c.n_kv_heads, c.head_dim)
     rows["flash_bf16_noncausal_dh80"] = check_flash(hubert, torch.bfloat16, False, 0, 40,
                                                     timed=True)
-    check_flash(hubert, torch.float32, False, 0, 41, timed=False)
+    rows["flash_f32_noncausal_dh80"] = check_flash(hubert, torch.float32, False, 0, 41,
+                                                   timed=True)
     for dtype in (torch.float32, torch.bfloat16):
         check_flash((1, 300, 4, 4, 80), dtype, False, 0, 42, timed=False, skv=450)
         check_flash((2, 200, 4, 2, 80), dtype, True, 0, 43, timed=False)
@@ -2106,17 +2129,15 @@ def phase_model_kernels():
         check_flash(shape, torch.bfloat16, causal, window, 20 + i, timed=False, skv=skv)
     # Phase 15's training attention, causal, at the trainer's kv_chunk (the
     # sequence): qwen3-1.7b's microbatch in bf16 (step 1, the wgmma kernel)
-    # and f32 (every later step: Adam promotes the parameters), and
+    # and f32 (every later step: Adam promotes the parameters; timed), and
     # train_100m's in f32.
     c, m = configs.get(TRAIN_ARCH), train_100m.CFG_100M
-    for shape, dtype, seq, seed in [
-            ((TRAIN_BATCH // TRAIN_MB, TRAIN_SEQ, c.n_heads, c.n_kv_heads, c.head_dim),
-             torch.bfloat16, TRAIN_SEQ, 50),
-            ((TRAIN_BATCH // TRAIN_MB, TRAIN_SEQ, c.n_heads, c.n_kv_heads, c.head_dim),
-             torch.float32, TRAIN_SEQ, 51),
-            ((TRAIN_100M_BATCH, TRAIN_100M_SEQ, m.n_heads, m.n_kv_heads, m.head_dim),
-             torch.float32, TRAIN_100M_SEQ, 52)]:
-        check_flash(shape, dtype, True, 0, seed, timed=False, kv_chunk=seq)
+    train = (TRAIN_BATCH // TRAIN_MB, TRAIN_SEQ, c.n_heads, c.n_kv_heads, c.head_dim)
+    check_flash(train, torch.bfloat16, True, 0, 50, timed=False, kv_chunk=TRAIN_SEQ)
+    rows["flash_f32_training"] = check_flash(train, torch.float32, True, 0, 51, timed=True,
+                                             kv_chunk=TRAIN_SEQ)
+    check_flash((TRAIN_100M_BATCH, TRAIN_100M_SEQ, m.n_heads, m.n_kv_heads, m.head_dim),
+                torch.float32, True, 0, 52, timed=False, kv_chunk=TRAIN_100M_SEQ)
     rows["rwkv"] = check_rwkv((PREFILL_BATCH, PREFILL_SEQ, 32, 64), 5, timed=True)
     check_rwkv((1, 1000, 32, 64), 6, timed=False)
     check_rwkv((2, 4096, 32, 64), 7, timed=False, strong=True)
@@ -3219,10 +3240,11 @@ def main() -> int:
             log(f"    {line}")
         for line in ptxas_summary(res["log"]):
             log(f"  ptxas {name}: {line}")
-    hgmma = sass_count(builds["flash_attn"]["path"], "HGMMA")
-    log(f"flash_attn library: {hgmma} HGMMA instructions (cuobjdump -sass)")
-    if not hgmma:
-        raise AssertionError("the flash_attn library issues no wgmma (no HGMMA in its SASS)")
+    hgmma = flash_hgmma(builds["flash_attn"]["path"])
+    log(f"flash_attn library: HGMMA instructions by kernel (cuobjdump -sass) {hgmma}")
+    if sorted(hgmma) != sorted(KERNEL_SYMBOLS["flash_attention"]) or not all(hgmma.values()):
+        raise AssertionError(f"each flash kernel (bf16 and f32) must issue wgmma: HGMMA "
+                             f"counts by kernel {hgmma}")
     n_draw, by_code = threefry_instructions()
     tf = (n_draw, issue_rate)
     log(f"threefry draw (uniform_at, csrc/common.cuh): {n_draw} SASS instructions "
@@ -3389,6 +3411,8 @@ def main() -> int:
              model_rows["flash_bf16"], by_model("flash_attention"),
              {"shape": model_rows["flash_bf16"]["shape"], "dtype": "bfloat16",
               "f32": model_rows["flash_f32"],
+              "f32_training": model_rows["flash_f32_training"],
+              "f32_noncausal_dh80": model_rows["flash_f32_noncausal_dh80"],
               "bf16_noncausal_dh80": model_rows["flash_bf16_noncausal_dh80"],
               "hgmma_in_sass": hgmma}),
             ("rwkv_chunk", "rwkv_chunk", "src/repro/kernels/rwkv_chunk.py:90",
@@ -3428,6 +3452,10 @@ def main() -> int:
                 f"profiler {fmt_ms(k.get('device_ms'))} in "
                 f"{k.get('device_kernels_per_call')} kernels a call) is below its bound "
                 f"{k['bound_ms']:.4f} ms: the bound is not a bound")
+        for label, row in k.items():   # the timed rows kept beside the main one
+            if isinstance(row, dict) and "bound_ms" in row and row["ms"] < row["bound_ms"]:
+                raise AssertionError(f"{k['name']} {label}: {row['ms']:.4f} ms is below its "
+                                     f"bound {row['bound_ms']:.4f} ms: the bound is not a bound")
     log(f"FL profiles: {json.dumps(profiles)}")
     log(f"fused paths: {json.dumps(fused)}")
     print(json.dumps({"kernels": kernels}))

@@ -5,6 +5,8 @@ theta in [0, 1] (FedPM-style probabilistic masks).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 # Numerical floor keeping log-ratios finite (the paper's p_j > zeta);
@@ -24,6 +26,11 @@ def bern_kl(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return q * torch.log(q / p) + (1.0 - q) * torch.log((1.0 - q) / (1.0 - p))
 
 
+def bern_kl_bits(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Elementwise KL in bits (the unit the MRC cost model uses)."""
+    return bern_kl(q, p) / math.log(2.0)
+
+
 def log_ratio_coeffs(q: torch.Tensor, p: torch.Tensor):
     """Coefficients (a, b) with log(Q(x)/P(x)) = sum_e x_e * a_e + b_e.
 
@@ -35,6 +42,10 @@ def log_ratio_coeffs(q: torch.Tensor, p: torch.Tensor):
     llr1 = torch.log(q) - torch.log(p)
     llr0 = torch.log1p(-q) - torch.log1p(-p)
     return llr1 - llr0, llr0
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.sigmoid(x)
 
 
 def inv_sigmoid(theta: torch.Tensor) -> torch.Tensor:

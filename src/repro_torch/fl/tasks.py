@@ -93,6 +93,13 @@ class MaskTask:
         """Accuracy with the expected mask (w * theta) -- low-variance eval."""
         return float(self.accuracy(theta))
 
+    def evaluate_sampled(self, theta: torch.Tensor, key: torch.Tensor) -> float:
+        """Accuracy with one mask drawn from Bernoulli(theta) under ``key``
+        (``jax.random.bernoulli``'s draw, bit for bit)."""
+        m = prng.bernoulli(key, clip01(theta)).to(torch.float32)
+        return float(accuracy(self.net, self.unravel(self.w0_flat * m), self.x_test,
+                              self.y_test))
+
 
 def make_mask_task(net: MLP, key: torch.Tensor, x_test, y_test, **kw) -> MaskTask:
     w0_flat, unravel = flatten_weights(net.init(key))

@@ -106,18 +106,19 @@ def _library() -> ctypes.CDLL:
 
 
 def _check_tma(tensors: dict) -> None:
-    """TMA's rules for the bf16 kernel's tensor maps: each base pointer
-    16-byte aligned, each byte stride (batch, sequence, head) a multiple of
-    16.  A stride of an axis of size 1 is never used and is not checked."""
+    """The kernels' 16-byte rules (the bf16 kernel's TMA tensor maps, the f32
+    kernel's 16-byte loads): each base pointer 16-byte aligned, each byte
+    stride (batch, sequence, head) a multiple of 16.  A stride of an axis of
+    size 1 is never used and is not checked."""
     for tname, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{NAME}: {tname} starts at an address that is not 16-byte "
-                             "aligned, which the bf16 kernel's TMA loads need")
+                             "aligned, which the kernels' 16-byte loads need")
         bad = [i for i in range(3) if t.shape[i] > 1 and (t.stride(i) * t.element_size()) % 16]
         if bad:
             raise ValueError(f"{NAME}: {tname} has byte strides "
                              f"{[t.stride(i) * t.element_size() for i in bad]} that are not "
-                             "multiples of 16, which the bf16 kernel's TMA loads need")
+                             "multiples of 16, which the kernels' 16-byte loads need")
 
 
 def _strides(t: torch.Tensor):
@@ -136,10 +137,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          scale: float = 1.0) -> torch.Tensor:
     """Launch a CUDA kernel on the current stream; raises on bad input.
 
-    The input type alone picks the kernel: bf16 runs the wgmma + TMA kernel
-    (every bf16 shape this wrapper accepts; its pointers and strides must
-    meet TMA's 16-byte rules, else ``ValueError``), f32 the CUDA-core
-    kernel.  Neither falls back to the other.
+    The input type alone picks the kernel: bf16 runs the wgmma + TMA kernel,
+    f32 the split-TF32 wgmma kernel.  Both take every shape this wrapper
+    accepts; pointers and strides must meet the 16-byte rules
+    (``_check_tma``), else ``ValueError``.  Neither falls back to the other.
     """
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"{NAME}: q {tuple(q.shape)} must be (B, Sq, H, Dh) and k "
@@ -152,8 +153,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if dh > 128 or dh % 8:
         raise ValueError(f"{NAME}: head size {dh} unsupported (a multiple of 8, <= 128)")
     build.check_strided_inputs(NAME, {"q": q, "k": k, "v": v}, DTYPES)
-    if q.dtype == torch.bfloat16:
-        _check_tma({"q": q, "k": k, "v": v})
+    _check_tma({"q": q, "k": k, "v": v})
     if max(sq, skv) > build.INT32_MAX - 128 or b > 65535 or h > 65535:
         raise ValueError(f"{NAME}: sizes {tuple(q.shape)}, {tuple(k.shape)} out of range")
     out = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)

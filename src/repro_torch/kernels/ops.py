@@ -146,9 +146,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     The kernel reads the model's layout: no kv-head repeat, no head fold,
     no padding.  f32 or bf16; Dh a multiple of 8 up to 128.  On the card
-    the type alone picks the kernel: bf16 runs the wgmma + TMA kernel
-    (16-byte-aligned pointers and strides, else ``ValueError``), f32 the
-    CUDA-core kernel.  The CPU route scans KV in chunks of
+    the type alone picks the kernel: bf16 runs the wgmma + TMA kernel, f32
+    the split-TF32 wgmma kernel (both: 16-byte-aligned pointers and strides,
+    else ``ValueError``).  The CPU route scans KV in chunks of
     ``min(kv_chunk, Skv)``, as the reference model's ``attention`` does.
 
     Differentiable: the forward is the route above, on detached inputs; the

@@ -45,6 +45,7 @@ def make_host_mesh() -> Mesh:
 # H100 SXM per-device constants for the roofline (NVIDIA H100 data sheet).
 PEAK_FLOPS_BF16 = 989e12      # FLOP/s, bf16 tensor cores, dense
 PEAK_FLOPS_F32 = 67e12        # FLOP/s, f32 outside the tensor cores
+PEAK_FLOPS_TF32 = 495e12      # FLOP/s, TF32 tensor cores, dense
 HBM_BW = 3.35e12              # bytes/s, HBM3
 # Interconnect, bytes/s per direction, for the collective term: a card's
 # 400 Gb/s NDR InfiniBand port, 50 GB/s.  A (16, 16) mesh spans 32 nodes

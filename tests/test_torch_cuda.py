@@ -592,7 +592,8 @@ from repro_torch.kernels import flash_attn as fa  # noqa: E402
 from repro_torch.kernels import rwkv_chunk as rc  # noqa: E402
 
 # f32 inputs: the kernel sums the same f32 terms as its plain version in
-# another order, so it is held within 1e-5 x the magnitude of those terms
+# another order (the f32 flash kernel's split-TF32 products within 2^-22 of
+# each), so it is held within 1e-5 x the magnitude of those terms
 # (softmax-weighted |v| for attention, |o|'s largest entry for RWKV).
 F32_RTOL = 1e-5
 # bf16 outputs: both round an f32 result to bf16 (8 bits of mantissa), so
@@ -687,6 +688,96 @@ def test_flash_attention_bf16_kernel_refuses_what_tma_cannot_load(cuda):
     wide = torch.randn(1, 64, 4, 36, device=cuda).to(torch.bfloat16)
     with pytest.raises(ValueError, match="multiples of 16"):
         fa.flash_attention_cuda(wide[..., :32], k, v)   # head stride of 72 bytes
+    before = ops.flash_attention.launches
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, v)
+    assert ops.flash_attention.launches == before
+
+
+@pytest.mark.parametrize("shape,causal,window", [
+    ((1, 200, 200, 2, 1, 8), True, 0),        # Dh 8: one k8 step, one 32-column panel
+    ((2, 200, 200, 4, 2, 40), True, 0),       # Dh 40: a panel and 8 columns of a second
+    ((2, 200, 200, 4, 2, 80), True, 0),       # Dh 80 (HuBERT's): PV over 96 columns
+    ((1, 330, 330, 16, 8, 128), True, 0),     # Dh 128, rep 2, last q block of 10 rows
+    ((1, 100, 300, 4, 2, 64), True, 0),       # Sq < Skv
+    ((1, 300, 100, 2, 2, 128), True, 0),      # Sq > Skv, rep 1
+    ((2, 90, 250, 8, 1, 40), False, 0),       # rep 8, Skv off the 32-key tiles
+    ((1, 1000, 1000, 2, 1, 128), True, 256),  # a window across tile edges
+    ((1, 700, 700, 2, 2, 64), False, 100),    # a window off the tiles, non-causal
+    ((1, 65, 65, 1, 1, 128), True, 0)])       # a last q block of one row
+def test_flash_attention_f32_kernel_edge_shapes(cuda, shape, causal, window):
+    """The split-TF32 kernel at its edges: every panel count (Dh 8, 40, 80,
+    128), Sq != Skv, GQA groups of 1, 2 and 8, ragged q blocks and key
+    tiles, windows across tile edges."""
+    q, k, v = _flash_inputs(*shape, dtype=torch.float32, device=cuda, seed=sum(shape) + 3)
+    kw = dict(causal=causal, window=window, scale=shape[-1] ** -0.5)
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_attn_close(got, q, k, v, **kw)
+
+
+def test_flash_attention_f32_kernel_reads_heads_first_views(cuda):
+    """f32 q, k, v as (B, H, S, Dh) tensors viewed as (B, S, H, Dh): every
+    stride but the last differs from the packed layout."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(2, n, 150, 64, generator=gen, device=cuda).transpose(1, 2)
+               for n in (8, 2, 2))
+    assert not q.is_contiguous()
+    got = fa.flash_attention_cuda(q, k, v, causal=True, scale=0.125)
+    torch.cuda.synchronize()
+    _assert_attn_close(got, q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+                       scale=0.125)
+
+
+def _attn_exact(q, k, v, *, causal, scale):
+    """The attention in float64, one softmax over every key."""
+    rep = q.shape[2] // k.shape[2]
+    kd, vd = (t.double().repeat_interleave(rep, dim=2) for t in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), kd) * scale
+    i = torch.arange(q.shape[1], device=q.device)[:, None]
+    j = torch.arange(k.shape[1], device=q.device)[None, :]
+    if causal:
+        s = s.masked_fill(j > i, -torch.inf)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), vd), float(s.abs().max())
+
+
+def test_flash_attention_f32_kernel_large_scores(cuda):
+    """Scores of magnitude ~30, a sharp softmax.  With Dh 8 the kernel is
+    held to the plain version at the bound.  With Dh 128 each score sums 128
+    products of size ~6 in f32, and the plain version's own error against
+    float64 reaches 0.68-1.0 of the bound (two f32 summation orders can
+    differ by more than it), so there the kernel is held to float64 at the
+    bound: no further from the exact value than f32 arithmetic is."""
+    q, k, v = _flash_inputs(2, 200, 200, 2, 1, 8, dtype=torch.float32, device=cuda, seed=11)
+    q = q * 5.0
+    kw = dict(causal=True, window=0, scale=8 ** -0.5)
+    assert _attn_exact(q, k, v, causal=True, scale=kw["scale"])[1] > 25.0
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_attn_close(got, q, k, v, **kw)
+    q, k, v = _flash_inputs(2, 200, 200, 2, 1, 128, dtype=torch.float32, device=cuda, seed=12)
+    q = q * 6.0
+    kw = dict(causal=True, window=0, scale=128 ** -0.5)
+    exact, smax = _attn_exact(q, k, v, causal=True, scale=kw["scale"])
+    assert smax > 25.0
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    tol = F32_RTOL * fa.flash_attention_ref(q, k, v.abs(), **kw) + 1e-6
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got.double() - exact).abs() <= tol).all()), \
+        float(((got.double() - exact).abs() / tol).max())
+
+
+def test_flash_attention_f32_kernel_refuses_misaligned_views(cuda):
+    """The f32 kernel's 16-byte loads take the bf16 kernel's rules."""
+    flat = torch.randn(1 + 64 * 4 * 32, device=cuda)
+    q = flat[1:].view(1, 64, 4, 32)                     # storage offset of 4 bytes
+    k = v = torch.randn(1, 64, 4, 32, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_cuda(q, k, v)
+    wide = torch.randn(1, 64, 4, 34, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        fa.flash_attention_cuda(wide[..., :32], k, v)   # head stride of 136 bytes
     before = ops.flash_attention.launches
     with pytest.raises(ValueError):
         ops.flash_attention(q, k, v)
@@ -1047,9 +1138,9 @@ LOGITS_RTOL = 1e-4
                                           ((1, 300, 450, 4, 4, 80), False),
                                           ((2, 200, 200, 4, 2, 80), True)])
 def test_flash_attention_kernel_at_head_dim_80(cuda, shape, causal, dtype):
-    """HuBERT's head size: the f32 kernel's 5-column case, and the bf16
-    kernel's second 64-column panel holding 16 columns (TMA zero-fills the
-    rest)."""
+    """HuBERT's head size: the f32 kernel's third 32-column panel holding 16
+    columns, and the bf16 kernel's second 64-column panel holding 16 columns
+    (TMA zero-fills the rest)."""
     q, k, v = _flash_inputs(*shape, dtype=dtype, device=cuda, seed=sum(shape) + 2)
     kw = dict(causal=causal, window=0, scale=80 ** -0.5)
     got = fa.flash_attention_cuda(q, k, v, **kw)
