@@ -214,7 +214,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch import cfl_gradient_compression, convert, prng, quickstart  # noqa: E402
+from repro_torch import cfl_gradient_compression, convert, prng, quickstart, spans  # noqa: E402
 from repro_torch.core import mrc  # noqa: E402
 from repro_torch.core.bernoulli import clip01, log_ratio_coeffs  # noqa: E402
 from repro_torch.core.blocks import AdaptiveAllocation, AdaptiveAvgAllocation  # noqa: E402
@@ -556,14 +556,16 @@ def read_counts():
 
 def device_profile(fn, per: int = 1):
     """Run ``fn`` under ``torch.profiler``: (device busy ms per ``per``, the
-    CUDA events with device time).  Busy is 0 when the profiler saw none."""
+    CUDA events with device time).  Busy is 0 when the profiler saw none.
+    The program's spans drawn on the device's timeline (user annotations)
+    are not device work and are left out."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, acc_events=True) as prof:
         fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
+              and not e.is_user_annotation and e.self_device_time_total > 0]
     return sum(e.self_device_time_total for e in events) / 1e3 / per, events
 
 
@@ -1105,8 +1107,8 @@ def run_path(name):
         spec.allocation.log = plans = []
     reset_counts()
     t0 = time.perf_counter()
-    out = FLEngine(task, spec).run(shards, rounds=ROUNDS, seed=cfg["seed"], eval_every=1,
-                                   mode="host")
+    out = with_phases(lambda: FLEngine(task, spec).run(shards, rounds=ROUNDS, seed=cfg["seed"],
+                                                       eval_every=1, mode="host"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
@@ -1116,12 +1118,8 @@ def run_path(name):
         log(f"  plans: " + "; ".join(
             f"round {t}: size {pl[0]}, {pl[1]} blocks, overhead {pl[3]}"
             for t, pl in enumerate(plans)))
-    ph = out["phase_seconds"]
-    for label, sl in (("round 1 (warm-up)", slice(0, 1)),
-                      (f"rounds 2-{ROUNDS} mean", slice(1, None))):
-        log(f"  {label}: " + ", ".join(
-            f"{k} {1e3 * sum(v[sl]) / len(v[sl]):.3f} ms" for k, v in ph.items())
-            + " (host clock, synchronised at phase ends)")
+    for label, key in (("round 1 (warm-up)", "first"), (f"rounds 2-{ROUNDS} mean", "steady")):
+        log(f"  {label}: {phase_text(out['phase_ms'][key])}")
     return launches, plans, out
 
 
@@ -1180,18 +1178,17 @@ def run_variant(label, rounds=VARIANT_ROUNDS):
     # run_bicompfl's spec (n_dl = n * n_ul = N_DL), on the host loop.
     spec = bicompfl_spec(variant, allocation=alloc, n_is=c["n_is"], n_dl=N_DL,
                          participation=part)
-    out = FLEngine(task, spec).run(shards, rounds=rounds, seed=c["seed"], eval_every=1,
-                                   cohort_rng=cohort_rng, mode="host")
+    out = with_phases(lambda: FLEngine(task, spec).run(
+        shards, rounds=rounds, seed=c["seed"], eval_every=1, cohort_rng=cohort_rng,
+        mode="host"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    ph = out["phase_seconds"]
     log(f"variant {label}: {rounds} rounds in {wall:.3f} s; launches {launches}; accuracy "
         f"{[round(h['acc'], 4) for h in out['history']]}; peak device memory "
-        f"{peak / 2**20:.1f} MiB; rounds 2-{rounds} mean: " + ", ".join(
-            f"{k} {1e3 * sum(v[1:]) / len(v[1:]):.3f} ms" for k, v in ph.items())
-        + " (host clock)")
+        f"{peak / 2**20:.1f} MiB; rounds 2-{rounds} mean: "
+        f"{phase_text(out['phase_ms']['steady'])}")
     return launches, plans, out, peak
 
 
@@ -1257,18 +1254,16 @@ def run_cfl(rounds=CFL_ROUNDS):
     reset_counts()
     t0 = time.perf_counter()
     # run_bicompfl_cfl's spec (CFLConfig's defaults), on the host loop.
-    out = FLEngine(task, cfl_spec()).run(shards, theta0, rounds=rounds, seed=0, eval_every=1,
-                                         mode="host")
+    out = with_phases(lambda: FLEngine(task, cfl_spec()).run(
+        shards, theta0, rounds=rounds, seed=0, eval_every=1, mode="host"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    ph = out["phase_seconds"]
     log(f"path BiCompFL-GR-CFL: {rounds} rounds in {wall:.3f} s; launches {launches}; accuracy "
         f"{[round(h['acc'], 4) for h in out['history']]}; peak device memory "
-        f"{peak / 2**20:.1f} MiB; rounds 2-{rounds} mean: " + ", ".join(
-            f"{k} {1e3 * sum(v[1:]) / len(v[1:]):.3f} ms" for k, v in ph.items())
-        + " (host clock, synchronised at phase ends)")
+        f"{peak / 2**20:.1f} MiB; rounds 2-{rounds} mean: "
+        f"{phase_text(out['phase_ms']['steady'])}")
     return launches, out, peak
 
 
@@ -1304,8 +1299,8 @@ def phase_baselines(rounds=CFL_ROUNDS):
         t0 = time.perf_counter()
         # run_baseline's spec, on the host loop.
         spec = baseline_spec(scheme, n=10, d=28160, reset_period=BASELINE_PERIOD)
-        out = FLEngine(task, spec).run(shards, theta0, rounds=rounds, seed=0, eval_every=1,
-                                       mode="host")
+        out = with_phases(lambda: FLEngine(task, spec).run(
+            shards, theta0, rounds=rounds, seed=0, eval_every=1, mode="host"))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_counts()
@@ -1581,10 +1576,10 @@ def profile_engine(name, engine, shards, rounds: int, run_kw, steady_rounds=ROUN
     engine.run(shards, rounds=1, **run_kw)  # warm-up outside the window
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ph = engine.run(shards, rounds=steady_rounds, **run_kw)["phase_seconds"]
+    ph = with_phases(lambda: engine.run(shards, rounds=steady_rounds, **run_kw))["phase_ms"]
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    steady_ms = 1e3 * sum(sum(v[1:]) for v in ph.values()) / (steady_rounds - 1)
+    steady_ms = ph["steady"]["round"]
     busy_ms, kernels = device_profile(lambda: engine.run(shards, rounds=rounds, **run_kw),
                                       rounds)
     if busy_ms == 0:
@@ -1676,6 +1671,32 @@ def own_launches(events, rounds):
     return {e.key: e.count / rounds for e in events if any(k in e.key for k in OWN_KERNELS)}
 
 
+def with_phases(run):
+    """``run()``, an FL run, inside ``spans.recording()`` on an empty span
+    buffer; its result gets ``phase_ms``: the device ms of each phase of a
+    round (``round``, ``train``, ``codec``, ``eval``; the spans ``fl.*``,
+    CUDA events) in round 1 (``first``) and averaged over rounds 2..
+    (``steady``), rounds without an eval counting 0 for it."""
+    spans.clear()
+    with spans.recording():
+        out = run()
+    recs = spans.records()
+    rounds = [r for r in recs if r.name == "fl.round"]
+    at = {r.index: i for i, r in enumerate(rounds)}
+    per = [{"round": r.device_ms, "train": 0.0, "codec": 0.0, "eval": 0.0} for r in rounds]
+    for r in recs:
+        if r.parent in at and r.name in ("fl.train", "fl.codec", "fl.eval"):
+            per[at[r.parent]][r.name[3:]] += r.device_ms
+    steady = per[1:]
+    out["phase_ms"] = {"first": per[0], "steady": {
+        k: sum(p[k] for p in steady) / len(steady) for k in per[0]}}
+    return out
+
+
+def phase_text(ms):
+    return ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()) + " (device time, CUDA events)"
+
+
 def same_run(host, fused):
     """Bit for bit: theta, theta_hat, bits and history."""
     return (torch.equal(host["theta"], fused["theta"])
@@ -1721,7 +1742,8 @@ def phase_fused(label, host_out, host_launches):
     captured = engine.fused_capture_count
     n_eval = len(out["history"])
     flushes = rounds // spec.sync_period if spec.sync_period else 0
-    graphs = (2 + len(set(out["buckets"]))) if adaptive else 2 + bool(flushes)
+    # stats, eval and one graph a bucket; or train, codec, eval and the flush
+    graphs = (2 + len(set(out["buckets"]))) if adaptive else 3 + bool(flushes)
     if out["mode"] != "fused" or captured != graphs:
         raise AssertionError(f"fused {label}: mode {out['mode']}, {captured} graphs "
                              f"captured, expected {graphs}")
@@ -1762,7 +1784,7 @@ def phase_fused(label, host_out, host_launches):
     torch.cuda.synchronize()
     steady_ms = 1e3 * (time.perf_counter() - t0) / rounds
     replayed = engine.fused_replay_count - replays
-    want = (2 * rounds if adaptive else rounds + flushes) + n_eval
+    want = 2 * rounds + (0 if adaptive else flushes) + n_eval
     if engine.fused_capture_count != captured or replayed != want:
         raise AssertionError(f"fused {label}: a second run captured "
                              f"{engine.fused_capture_count - captured} graphs and replayed "
@@ -1783,7 +1805,7 @@ def phase_fused(label, host_out, host_launches):
     if entry["mode"] != "fused" or not same_run(out, entry):
         raise AssertionError(f"fused {label}: the entry point ran {entry['mode']}, or not "
                              "the fused run's result")
-    host_ms = 1e3 * sum(sum(v[1:]) for v in host_out["phase_seconds"].values()) / (rounds - 1)
+    host_ms = host_out["phase_ms"]["steady"]["round"]
     idle = 1 - busy_ms / steady_ms if busy_ms else float("nan")
     log(f"fused {label}: {rounds} rounds, first run {first_s:.3f} s ({captured} graphs "
         f"captured), {agree}; its entry point in its default mode ran the fused path to the "
@@ -1805,9 +1827,6 @@ def phase_fused(label, host_out, host_launches):
 # ---------------------------------------------------------------------------
 
 
-def round_ms(out, rounds):
-    """Mean host-clock ms of rounds 2.. of a host run (all phases)."""
-    return 1e3 * sum(sum(v[1:]) for v in out["phase_seconds"].values()) / (rounds - 1)
 
 
 def phase_wire(label):
@@ -1817,13 +1836,14 @@ def phase_wire(label):
     task, _, shards, run_kw, _ = fused_setup(label)
     rounds = WIRE_ROUNDS
     reset_counts()
-    plain = FLEngine(task, fused_spec(label)).run(shards, rounds=rounds, mode="host", **run_kw)
+    plain = with_phases(lambda: FLEngine(task, fused_spec(label)).run(
+        shards, rounds=rounds, mode="host", **run_kw))
     torch.cuda.synchronize()
     plain_launches = read_counts()
     reset_counts()
     t0 = time.perf_counter()
-    out = FLEngine(task, fused_spec(label)).run(shards, rounds=rounds, mode="host",
-                                                wire="audit", **run_kw)
+    out = with_phases(lambda: FLEngine(task, fused_spec(label)).run(
+        shards, rounds=rounds, mode="host", wire="audit", **run_kw))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
@@ -1839,10 +1859,10 @@ def phase_wire(label):
     session = out["wire_session"]
     by_round = [sum(m.frame_bits for m in session.messages if m.round == t) / 8
                 for t in range(rounds)]
-    # Where the audit's time goes: each phase's host ms (rounds 2..), and a
+    # Where the audit's time goes: each phase's device ms (rounds 2..), and a
     # profiled one-round run's device time and kernels, audited and not.
-    split = {name: {k: 1e3 * sum(v[1:]) / (rounds - 1) for k, v in o["phase_seconds"].items()}
-             for name, o in (("audited", out), ("unaudited", plain))}
+    split = {name: o["phase_ms"]["steady"] for name, o in (("audited", out),
+                                                           ("unaudited", plain))}
     device = {}
     for name, kw in (("audited", {"wire": "audit"}), ("unaudited", {})):
         busy, events = device_profile(lambda kw=kw: FLEngine(task, fused_spec(label)).run(
@@ -1850,14 +1870,14 @@ def phase_wire(label):
         device[name] = {"busy_ms": busy, "kernels": sum(e.count for e in events)}
     row = {"stream_bytes_per_round": by_round, "payload_bits": rep["uplink_stream_bits"]
            + rep["downlink_stream_bits"], "framing_bits": session.framing_bits,
-           "messages": len(session.messages), "audited_round_ms": round_ms(out, rounds),
-           "unaudited_round_ms": round_ms(plain, rounds), "phase_ms": split,
+           "messages": len(session.messages), "audited_round_ms": split["audited"]["round"],
+           "unaudited_round_ms": split["unaudited"]["round"], "phase_ms": split,
            "device_one_round": device, "wall_s": wall, "launches": launches}
     log(f"wire {label}: {rounds} audited rounds in {wall:.3f} s, reconciled with 0 bits of "
         f"slack and bit-identical to the unaudited host run; {len(session.messages)} frames, "
         f"stream bytes per round {by_round}, payload {row['payload_bits']:.0f} bits, framing "
         f"{session.framing_bits} bits; round {row['audited_round_ms']:.3f} ms audited vs "
-        f"{row['unaudited_round_ms']:.3f} ms unaudited (host clock, rounds 2-{rounds}; "
+        f"{row['unaudited_round_ms']:.3f} ms unaudited (device time, rounds 2-{rounds}; "
         f"phases {split}); one profiled round: device busy {device['audited']['busy_ms']:.3f} "
         f"ms in {device['audited']['kernels']} kernels audited, "
         f"{device['unaudited']['busy_ms']:.3f} ms in {device['unaudited']['kernels']} "
@@ -1887,8 +1907,8 @@ def phase_faults(name, kind, factory):
     identical, the plan biting, the retransmits booked; PR also its faulted
     wire audit and its encoder's launches per faulted fused round."""
     task, shards, run_kw = fault_setup(kind)
-    host = FLEngine(task, factory()).run(shards, rounds=FAULT_ROUNDS, mode="host",
-                                         faults=FAULT_PLAN, **run_kw)
+    host = with_phases(lambda: FLEngine(task, factory()).run(
+        shards, rounds=FAULT_ROUNDS, mode="host", faults=FAULT_PLAN, **run_kw))
     engine = FLEngine(task, factory())
     fused = engine.run(shards, rounds=FAULT_ROUNDS, mode="fused", faults=FAULT_PLAN, **run_kw)
     rep = host["faults"]
@@ -1914,7 +1934,7 @@ def phase_faults(name, kind, factory):
     torch.cuda.synchronize()
     clean_ms = 1e3 * (time.perf_counter() - t0) / FAULT_ROUNDS
     row = {"summary": rep["summary"], "faulted_fused_round_ms": faulted_ms,
-           "clean_fused_round_ms": clean_ms, "host_round_ms": round_ms(host, FAULT_ROUNDS)}
+           "clean_fused_round_ms": clean_ms, "host_round_ms": host["phase_ms"]["steady"]["round"]}
     extra = ""
     if name == "bicompfl-pr":
         faulted_enc = encoder_launches(engine, shards, dict(run_kw, faults=FAULT_PLAN))

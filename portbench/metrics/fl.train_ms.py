@@ -1,0 +1,11 @@
+"""Device time of the program's ``fl.train`` spans (local training: the
+static train graph, the adaptive stats graph), ms per FL round, from the
+first traced pass."""
+from portbench.yardstick import spans
+
+
+def read(trace, ctx):
+    if "rounds" not in ctx:
+        return None
+    recs = spans.first_pass("fl.round", ctx["rounds"])
+    return spans.device_ms(recs, lambda n: n == "fl.train", ctx["rounds"])

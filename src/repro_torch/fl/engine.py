@@ -30,8 +30,10 @@ wire audit is asked for):
   and base key; under faults the round's fault masks), captured once per
   run signature as CUDA graphs on the card and replayed every round; on
   the CPU the same functions run eagerly in the same order.  Static plans
-  replay one round graph, an eval graph on eval rounds and a flush graph
-  on sync rounds; their bits are booked from the Python floats the first
+  replay a train graph (local training) and a codec graph (uplink,
+  aggregate, downlink, which reads the train graph's results from static
+  buffers) every round, an eval graph on eval rounds and a flush graph on
+  sync rounds; their bits are booked from the Python floats the first
   round records.  Adaptive allocations run *bucketed* plans
   (``core.blocks``' bucket API): a stats graph trains and selects the
   bucket on the device, the host reads the bucket index (one 4-byte read
@@ -51,6 +53,11 @@ and corrupted deliveries book their wasted copies into the BitMeter's
 ``retransmit_bits`` -- on the wire-audit path as real flipped frame copies
 that must fail their CRC.
 
+Both paths mark their phases as :mod:`repro_torch.spans` (``fl.job``,
+``fl.round`` and, inside it, ``fl.train``, ``fl.codec``, ``fl.eval``,
+``fl.flush``, ``fl.book``), which record only under a profiler or
+``spans.recording()``.
+
 Crash-safe resume: ``checkpoint_dir=`` + ``checkpoint_every=`` write the
 full engine carry (model, per-client estimates, channel states, BitMeter,
 history and a config blob) through the atomic :mod:`repro_torch.checkpoint`
@@ -64,7 +71,6 @@ from __future__ import annotations
 import gc
 import json
 import os
-import time
 import weakref
 from dataclasses import asdict, dataclass
 from typing import Any, Dict, Optional
@@ -73,7 +79,7 @@ import numpy as np
 import torch
 
 from repro_torch import checkpoint as ckpt
-from repro_torch import prng
+from repro_torch import prng, spans
 from repro_torch.core import mrc
 from repro_torch.core.bernoulli import bern_kl, clip01
 from repro_torch.core.bitmeter import BitMeter
@@ -229,8 +235,7 @@ class FLEngine:
         # device): seed replicates and new datasets of the same shapes reuse
         # the captured graphs.  ``fused_capture_count`` counts the round
         # functions captured (on the CPU: first run in a program, where the
-        # card would capture), the counterpart of the reference's
-        # ``fused_trace_count``; ``fused_replay_count`` the replays.
+        # card would capture); ``fused_replay_count`` the replays.
         self._fused_programs: Dict[Any, _FusedProgram] = {}
         self.fused_capture_count = 0
         self.fused_replay_count = 0
@@ -352,12 +357,9 @@ class FLEngine:
 
         Returns the reference's result dict (``history``, ``meter``,
         ``theta``, ``theta_hat``, ``final_acc``, ``max_acc``,
-        ``active_schedule``, ``mode``, and the keys above).  The host path
-        adds ``phase_seconds``: per round run, host-clock seconds of each
-        phase (``train``, ``codec`` = uplink + aggregate + downlink, ``eval``;
-        0.0 where no eval ran), each ended by a device synchronise.  The
-        fused path under an adaptive allocation adds ``buckets``, the bucket
-        index of every round it ran.
+        ``active_schedule``, ``mode``, and the keys above).  The fused path
+        under an adaptive allocation adds ``buckets``, the bucket index of
+        every round it ran.  The job's rounds are the span ``fl.job``.
         """
         task, spec = self.task, self.spec
         if wire not in (None, "audit"):
@@ -438,18 +440,19 @@ class FLEngine:
                       views=views, start_round=start_round, carry_in=carry_in,
                       history=history0, checkpoint_dir=checkpoint_dir,
                       checkpoint_every=checkpoint_every, cfg_blob=cfg_blob)
-        if fused:
-            out = self._run_fused(shards, theta, theta_hat, meter, **run_kw)
-        else:
-            session = None
-            if wire:
-                from repro_torch.wire import WireSession, scheme_wire_id
-                session = WireSession(scheme_id=scheme_wire_id(spec.name or "unnamed"))
-            out = self._run_host(shards, theta, theta_hat, meter, session=session,
-                                 fsched=fsched, **run_kw)
-            if session is not None:
-                out["wire"] = session.reconcile(meter)
-                out["wire_session"] = session
+        session = None
+        if wire:
+            from repro_torch.wire import WireSession, scheme_wire_id
+            session = WireSession(scheme_id=scheme_wire_id(spec.name or "unnamed"))
+        with spans.span("fl.job", theta.device):
+            if fused:
+                out = self._run_fused(shards, theta, theta_hat, meter, **run_kw)
+            else:
+                out = self._run_host(shards, theta, theta_hat, meter, session=session,
+                                     fsched=fsched, **run_kw)
+        if session is not None:
+            out["wire"] = session.reconcile(meter)
+            out["wire_session"] = session
         out["active_schedule"] = schedule
         out["mode"] = "fused" if fused else "host"
         if faults is not None:
@@ -591,97 +594,85 @@ class FLEngine:
             else:
                 up_s = spec.uplink.init_up_state(n, d, device)
                 dn_s = spec.downlink.init_down_state(n, d, device)
-        phase = {"train": [], "codec": [], "eval": []}
         on_dev = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
 
-        def sync():
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            return time.perf_counter()
-
         for t in range(start_round, rounds):
-            t0 = sync()
-            kt = mrc.round_key(base, t)
             active = schedule[t]
             rf = views[t] if faulted else None
             msgs = []  # this round's wire traffic (audit mode only)
-            ids = on_dev(active) if n_active < n else None
-            payload, priors = self._train(kt, theta_hat, shards.x, shards.y, ids)
-            t1 = sync()
+            with spans.span("fl.round", device):
+                with spans.span("fl.train", device):
+                    kt = mrc.round_key(base, t)
+                    ids = on_dev(active) if n_active < n else None
+                    payload, priors = self._train(kt, theta_hat, shards.x, shards.y, ids)
 
-            plan = None
-            if alloc is not None:
-                kl = None
-                if getattr(alloc, "needs_kl", True):
-                    stats = _kl_stats(payload, priors, needs_profile=getattr(
-                        alloc, "needs_profile", True))
-                    # The profile, or the mean KL where the card took only the total.
-                    kl = (stats["total"] / d if stats["profile"] is None
-                          else stats["profile"]).cpu().numpy()
-                size, n_blocks, seg_ids, overhead = alloc.plan(kl, d)
-                plan = BlockPlan(size=size, n_blocks=n_blocks, seg_ids=seg_ids,
-                                 overhead_bits=overhead)
-                if session is not None:
-                    # The plan crosses the wire as one CTRL frame per client
-                    # (the meter books overhead_bits * n); the decoded plan --
-                    # not the host object -- drives the round.  Under faults
-                    # the CTRL link is protected signalling: never corrupted,
-                    # but dropped clients miss their copy.
-                    ctrl = self._encode_plan_msgs(plan, n)
-                    plan = self._decode_plan_msg(ctrl[0], d)
-                    msgs += [m for m in ctrl if not faulted or rf.online[m.sender]]
+                with spans.span("fl.codec", device):
+                    plan = None
+                    if alloc is not None:
+                        kl = None
+                        if getattr(alloc, "needs_kl", True):
+                            stats = _kl_stats(payload, priors, needs_profile=getattr(
+                                alloc, "needs_profile", True))
+                            # The profile, or the mean KL where the card took only the total.
+                            kl = (stats["total"] / d if stats["profile"] is None
+                                  else stats["profile"]).cpu().numpy()
+                        size, n_blocks, seg_ids, overhead = alloc.plan(kl, d)
+                        plan = BlockPlan(size=size, n_blocks=n_blocks, seg_ids=seg_ids,
+                                         overhead_bits=overhead)
+                        if session is not None:
+                            # The plan crosses the wire as one CTRL frame per client
+                            # (the meter books overhead_bits * n); the decoded plan --
+                            # not the host object -- drives the round.  Under faults
+                            # the CTRL link is protected signalling: never corrupted,
+                            # but dropped clients miss their copy.
+                            ctrl = self._encode_plan_msgs(plan, n)
+                            plan = self._decode_plan_msg(ctrl[0], d)
+                            msgs += [m for m in ctrl if not faulted or rf.online[m.sender]]
 
-            if staged:
-                ctx = RoundContext(t=t, key=kt, n_clients=n, d=d, active=active, plan=plan,
-                                   up_weight=on_dev(rf.up_weight) if faulted else None)
-                th, thh, us, ds, update, ul_bits, dl_bits, oh_full = self._round_core(
-                    plan, theta, theta_hat, up_s, dn_s, payload, priors, ctx)
-                if faulted:
-                    # Carried, not corrupted: dropped/lost rows keep their
-                    # pre-round EF state and theta_hat estimate; an all-fail
-                    # round discards the whole computed step.
-                    us = _carry_rows(up_s, us, on_dev(rf.delivered_up))
-                    thh = torch.where(on_dev(rf.delivered_dn)[:, None], thh, theta_hat)
-                    if rf.all_failed:
-                        th, thh, us, ds = theta, theta_hat, up_s, dn_s
-                    ul_r, dl_r, oh_r, rt_r = _faulted_round_bits(
-                        ul_bits, dl_bits, oh_full, rf, n_active, dl_denom)
-                else:
-                    ul_r, dl_r, oh_r, rt_r = ul_bits, dl_bits, oh_full, 0.0
-                theta, theta_hat, up_s, dn_s = th, thh, us, ds
-                # The EF sync is protected signalling: exempt from faults,
-                # booked unscaled.
-                if spec.sync_period and (t + 1) % spec.sync_period == 0:
-                    theta, theta_hat, up_s, dn_s, b_up, b_dn = self._flush(
-                        theta, up_s, dn_s, update.lr, n, d)
-                    ul_r += b_up
-                    dl_r += b_dn
-                meter.add_round(ul_r, dl_r, overhead_bits=oh_r, retransmit_bits=rt_r)
-            else:
-                theta, theta_hat = self._shell_round(
-                    t, kt, active, plan, payload, priors, theta, theta_hat, meter,
-                    session, msgs, rf, fsched, n, d, n_active, dl_denom)
-            if session is not None:
-                session.add(msgs, round=t)
-            t2 = sync()
-            t3 = t2
-            if (t + 1) % eval_every == 0 or t == rounds - 1:
-                acc = task.evaluate(theta)
-                history.append({"round": t + 1, "acc": acc,
-                                "cum_bits": meter.total_bits,
-                                "bpp_so_far": meter.total_bpp})
-                t3 = sync()
-            phase["train"].append(t1 - t0)
-            phase["codec"].append(t2 - t1)
-            phase["eval"].append(t3 - t2)
-            if staged and checkpoint_dir and (
-                    (checkpoint_every and (t + 1) % checkpoint_every == 0) or t + 1 == rounds):
-                self._save_state(checkpoint_dir, t + 1, theta, theta_hat, up_s, dn_s, meter,
-                                 history, cfg_blob)
+                    if staged:
+                        ctx = RoundContext(t=t, key=kt, n_clients=n, d=d, active=active, plan=plan,
+                                           up_weight=on_dev(rf.up_weight) if faulted else None)
+                        th, thh, us, ds, update, ul_bits, dl_bits, oh_full = self._round_core(
+                            plan, theta, theta_hat, up_s, dn_s, payload, priors, ctx)
+                        if faulted:
+                            # Carried, not corrupted: dropped/lost rows keep their
+                            # pre-round EF state and theta_hat estimate; an all-fail
+                            # round discards the whole computed step.
+                            us = _carry_rows(up_s, us, on_dev(rf.delivered_up))
+                            thh = torch.where(on_dev(rf.delivered_dn)[:, None], thh, theta_hat)
+                            if rf.all_failed:
+                                th, thh, us, ds = theta, theta_hat, up_s, dn_s
+                            ul_r, dl_r, oh_r, rt_r = _faulted_round_bits(
+                                ul_bits, dl_bits, oh_full, rf, n_active, dl_denom)
+                        else:
+                            ul_r, dl_r, oh_r, rt_r = ul_bits, dl_bits, oh_full, 0.0
+                        theta, theta_hat, up_s, dn_s = th, thh, us, ds
+                        # The EF sync is protected signalling: exempt from faults,
+                        # booked unscaled.
+                        if spec.sync_period and (t + 1) % spec.sync_period == 0:
+                            theta, theta_hat, up_s, dn_s, b_up, b_dn = self._flush(
+                                theta, up_s, dn_s, update.lr, n, d)
+                            ul_r += b_up
+                            dl_r += b_dn
+                        meter.add_round(ul_r, dl_r, overhead_bits=oh_r, retransmit_bits=rt_r)
+                    else:
+                        theta, theta_hat = self._shell_round(
+                            t, kt, active, plan, payload, priors, theta, theta_hat, meter,
+                            session, msgs, rf, fsched, n, d, n_active, dl_denom)
+                    if session is not None:
+                        session.add(msgs, round=t)
+                if (t + 1) % eval_every == 0 or t == rounds - 1:
+                    with spans.span("fl.eval", device):
+                        acc = task.evaluate(theta)
+                        history.append({"round": t + 1, "acc": acc,
+                                        "cum_bits": meter.total_bits,
+                                        "bpp_so_far": meter.total_bpp})
+                if staged and checkpoint_dir and (
+                        (checkpoint_every and (t + 1) % checkpoint_every == 0) or t + 1 == rounds):
+                    self._save_state(checkpoint_dir, t + 1, theta, theta_hat, up_s, dn_s, meter,
+                                     history, cfg_blob)
 
-        out = self._result(history, meter, theta, theta_hat)
-        out["phase_seconds"] = phase
-        return out
+        return self._result(history, meter, theta, theta_hat)
 
     def _shell_round(self, t, kt, active, plan, payload, priors, theta, theta_hat, meter,
                      session, msgs, rf, fsched, n, d, n_active, dl_denom):
@@ -996,13 +987,17 @@ class _FusedProgram:
         self.dn_s = spec.downlink.init_down_state(n, d, dev)
         # Outputs read at the checkpoint boundaries and the end: accuracy at
         # eval rounds and, under an adaptive allocation, the round's uplink,
-        # downlink and overhead bits; the stats graph's results, read by the
-        # bucket graphs.
+        # downlink and overhead bits; the train or stats graph's results,
+        # read by the codec or bucket graphs (a static full cohort's priors
+        # are theta_hat itself).
         self.accs = torch.zeros(rounds, dtype=f32, device=dev)
         self.bits = torch.zeros((3, rounds), dtype=f32, device=dev)
-        if self.adaptive:
-            self.payload = torch.empty((n_active, d), dtype=f32, device=dev)
-            self.priors = torch.empty((n_active, d), dtype=f32, device=dev)
+        self.payload = torch.empty((n_active, d), dtype=f32, device=dev)
+        self.priors = self.theta_hat if self.full and not self.adaptive else \
+            torch.empty((n_active, d), dtype=f32, device=dev)
+        if not self.adaptive:
+            self.kt = torch.empty(2, dtype=i64, device=dev)
+        else:
             self.profile = torch.empty(d, dtype=f32, device=dev)
             self.total = torch.empty((), dtype=f32, device=dev)
             self.bidx = torch.empty((), dtype=torch.int32, device=dev)
@@ -1013,11 +1008,10 @@ class _FusedProgram:
 
     # -- the round functions (captured on the card) ------------------------
 
-    def _key_and_ctx(self, plan):
-        kt = mrc.round_key(self.base, self.t)
-        return kt, RoundContext(t=self.t, key=kt, n_clients=self.n, d=self.d,
-                                active=self.active, plan=plan,
-                                up_weight=self.masks["w"] if self.faulted else None)
+    def _ctx(self, plan, kt):
+        return RoundContext(t=self.t, key=kt, n_clients=self.n, d=self.d,
+                            active=self.active, plan=plan,
+                            up_weight=self.masks["w"] if self.faulted else None)
 
     def _store(self, theta, theta_hat, up_s, dn_s):
         """Write the round's carry back, under faults after the same masking
@@ -1035,14 +1029,24 @@ class _FusedProgram:
         _copy_tree_((self.theta, self.theta_hat, self.up_s, self.dn_s),
                     (theta, theta_hat, up_s, dn_s))
 
-    def _round(self):
-        """Static plan: train, uplink, aggregate, downlink."""
-        plan = self.plans[0]
-        kt, ctx = self._key_and_ctx(plan)
+    def _train(self):
+        """Static plan: the round key and local training, left in the static
+        buffers the codec graph reads."""
+        kt = mrc.round_key(self.base, self.t)
         payload, priors = self.engine._train(kt, self.theta_hat, self.x, self.y,
                                              None if self.full else self.active)
+        self.kt.copy_(kt)
+        self.payload.copy_(payload)
+        if priors is not self.priors:
+            self.priors.copy_(priors)
+
+    def _codec(self):
+        """Static plan: uplink, aggregate, downlink on the train graph's
+        results."""
+        plan = self.plans[0]
         theta, theta_hat, up_s, dn_s, update, ul, dl, oh = self.engine._round_core(
-            plan, self.theta, self.theta_hat, self.up_s, self.dn_s, payload, priors, ctx)
+            plan, self.theta, self.theta_hat, self.up_s, self.dn_s, self.payload,
+            self.priors, self._ctx(plan, self.kt))
         self._store(theta, theta_hat, up_s, dn_s)
         self.booked.setdefault("round", (ul, dl, oh, update.lr))
 
@@ -1077,7 +1081,7 @@ class _FusedProgram:
         uplink, aggregate, downlink; the bits go into the device vectors."""
         stats = {"profile": self.profile, "total": self.total}
         plan = self.alloc.finalize_plan(self.plans[b], stats, self.d)
-        _, ctx = self._key_and_ctx(plan)
+        ctx = self._ctx(plan, mrc.round_key(self.base, self.t))
         theta, theta_hat, up_s, dn_s, _, ul, dl, oh = self.engine._round_core(
             plan, self.theta, self.theta_hat, self.up_s, self.dn_s, self.payload,
             self.priors, ctx)
@@ -1091,37 +1095,40 @@ class _FusedProgram:
 
     # -- capture and replay -------------------------------------------------
 
-    def _play(self, name, fn) -> None:
-        graph = self.graphs.get(name)
-        if graph is not None:
-            self.engine.fused_replay_count += 1
-            graph.replay() if self.on_card else fn()
-            return
-        self.engine.fused_capture_count += 1
-        if not self.on_card:
-            self.graphs[name] = fn
-            fn()
-            return
-        cur = torch.cuda.current_stream(self.stream.device)
-        self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream):
-            fn()                      # this round's work, eagerly: the warm-up
-        cur.wait_stream(self.stream)
-        graph = torch.cuda.CUDAGraph()
-        # No garbage collection inside the capture: destroying another
-        # program's graph there would invalidate it (``torch.cuda.graph``
-        # collects just before the capture begins).
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+    def _play(self, name, fn, span: str) -> None:
+        """Replay graph ``name``, or run and capture ``fn`` as it, inside
+        the span ``span``."""
+        with spans.span(span, self.theta.device):
+            graph = self.graphs.get(name)
+            if graph is not None:
+                self.engine.fused_replay_count += 1
+                graph.replay() if self.on_card else fn()
+                return
+            self.engine.fused_capture_count += 1
+            if not self.on_card:
+                self.graphs[name] = fn
                 fn()
-        finally:
-            if collecting:
-                gc.enable()
-        if self.pool is None:
-            self.pool = graph.pool()
-        self.graphs[name] = graph
+                return
+            cur = torch.cuda.current_stream(self.stream.device)
+            self.stream.wait_stream(cur)
+            with torch.cuda.stream(self.stream):
+                fn()                      # this round's work, eagerly: the warm-up
+            cur.wait_stream(self.stream)
+            graph = torch.cuda.CUDAGraph()
+            # No garbage collection inside the capture: destroying another
+            # program's graph there would invalidate it (``torch.cuda.graph``
+            # collects just before the capture begins).
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                    fn()
+            finally:
+                if collecting:
+                    gc.enable()
+            if self.pool is None:
+                self.pool = graph.pool()
+            self.graphs[name] = graph
 
     def _book(self, meter, s, e, eval_mask, flush_mask, views, history):
         """Book rounds [s, e) into the meter and the history: static plans
@@ -1201,28 +1208,32 @@ class _FusedProgram:
         buckets = []
         s = start_round
         for t in range(start_round, self.rounds):
-            self.t.fill_(t)
-            self.active.copy_(self.sched[t])
-            if self.faulted:
-                for k, mask in self.masks.items():
-                    mask.copy_(self.tables[k][t])
-            if self.adaptive:
-                self._play("stats", self._stats)
-                b = int(self.bidx)    # the round's one device-to-host read
-                buckets.append(b)
-                self._play(("bucket", b), lambda b=b: self._bucket(b))
-            else:
-                self._play("round", self._round)
-                if flush_mask[t]:
-                    self._play("flush", self._sync)
-            if eval_mask[t]:
-                self._play("eval", self._eval)
-            if t + 1 in cuts:
-                self._book(meter, s, t + 1, eval_mask, flush_mask, views, history)
-                s = t + 1
-                if checkpoint_dir:
-                    self.engine._save_state(checkpoint_dir, s, self.theta, self.theta_hat,
-                                            self.up_s, self.dn_s, meter, history, cfg_blob)
+            with spans.span("fl.round", dev):
+                self.t.fill_(t)
+                self.active.copy_(self.sched[t])
+                if self.faulted:
+                    for k, mask in self.masks.items():
+                        mask.copy_(self.tables[k][t])
+                if self.adaptive:
+                    self._play("stats", self._stats, "fl.train")
+                    b = int(self.bidx)    # the round's one device-to-host read
+                    buckets.append(b)
+                    self._play(("bucket", b), lambda b=b: self._bucket(b), "fl.codec")
+                else:
+                    self._play("train", self._train, "fl.train")
+                    self._play("codec", self._codec, "fl.codec")
+                    if flush_mask[t]:
+                        self._play("flush", self._sync, "fl.flush")
+                if eval_mask[t]:
+                    self._play("eval", self._eval, "fl.eval")
+                if t + 1 in cuts:
+                    with spans.span("fl.book", dev):
+                        self._book(meter, s, t + 1, eval_mask, flush_mask, views, history)
+                    s = t + 1
+                    if checkpoint_dir:
+                        self.engine._save_state(checkpoint_dir, s, self.theta,
+                                                self.theta_hat, self.up_s, self.dn_s, meter,
+                                                history, cfg_blob)
         out = self.engine._result(history, meter, self.theta.clone(), self.theta_hat.clone())
         if self.adaptive:
             out["buckets"] = buckets

@@ -13,12 +13,15 @@ count that goes up by one where it launches its kernel and nowhere else, so
 a run can show that its main path went through the kernel.  Where it
 launches its kernel it also reports the launch's work (``kernels.cost``)
 to the active cost modes (``launch.op_cost``), which see no ``ctypes``
-call; each route runs inside ``cost.region`` of the wrapper's name.
+call; each route runs inside ``cost.region`` of the wrapper's name.  The
+card route is the span ``kernel.<wrapper's name>`` (``repro_torch.spans``):
+the kernel's checks, its ``ctypes`` call and its launcher.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import spans
 from . import bernoulli_kl as _kl
 from . import cost
 from . import flash_attn as _fa
@@ -37,7 +40,8 @@ def _route(fn, plain, kernel, t: torch.Tensor, *args, work=None):
             return plain(*args)
         if t.device.type != "cuda":
             raise ValueError(f"{name} runs on cpu, meta or cuda, not {t.device}")
-        out = kernel(*args)
+        with spans.span(fn.span_name, t.device):
+            out = kernel(*args)
         fn.launches += 1
         if cost.active():
             cost.report(name, work() if work is not None else getattr(cost, name)(*args))
@@ -230,6 +234,7 @@ for _fn in (mrc_logw, mrc_fixed_encode, bernoulli_kl, bernoulli_kl_total,
             bernoulli_kl_profile, segment_logw, segment_mrc_encode, segment_select,
             flash_attention, rwkv_time_mix):
     _fn.launches = 0
+    _fn.span_name = f"kernel.{_fn.__name__}"
 
 
 def mrc_logw_fn():

@@ -18,6 +18,11 @@ gradient of each leaf is stochastically sign-quantized (Q_s with K = mean
 |g|, a Bernoulli(sigmoid(g / K)) sign per entry, keyed per leaf) -- the
 paper's uplink structure inside the trainer.
 
+Spans (``repro_torch.spans``): ``train.step`` is ``Trainer.step``; inside
+it ``train.fwd_bwd`` is one microbatch's loss, gradients and their
+accumulation, ``train.sign`` the stochastic sign over every leaf,
+``train.update`` the optimizer and ``train.sync`` the loss read back.
+
 Sharding metadata, as the reference's: ``opt_state_specs`` and
 ``batch_specs`` give the partition specs of the optimizer state and the
 batch, ``build_setup`` everything the dry run traces (the model, the
@@ -34,7 +39,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import convert, optim, prng, resolve_device
+from repro_torch import convert, optim, prng, resolve_device, spans
 from repro_torch.kernels import cost
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import sharding, transformer as T
@@ -150,22 +155,24 @@ def make_train_step(model: T.Model, opt: optim.Optimizer, *, microbatches: int =
         traced = 1 if dev.type == "meta" else microbatches
         with cost.repeat(microbatches // traced):
             for i in range(traced):
-                loss = loss_fn(params, {k: v[i] for k, v in mbatch.items()})
-                mb_grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                               materialize_grads=True)
-                loss_sum = loss_sum + loss.detach()
-                for acc, g in zip(grads, mb_grads):
-                    acc.add_(g)
-                del loss, mb_grads
+                with spans.span("train.fwd_bwd", dev):
+                    loss = loss_fn(params, {k: v[i] for k, v in mbatch.items()})
+                    mb_grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                                   materialize_grads=True)
+                    loss_sum = loss_sum + loss.detach()
+                    for acc, g in zip(grads, mb_grads):
+                        acc.add_(g)
+                    del loss, mb_grads
         loss = loss_sum / microbatches
         for g in grads:
             g.div_(microbatches)
 
         if grad_compression == "stochastic_sign":
-            keys = prng.split(key, len(leaves))
-            grads = [_stochastic_sign_compress(g, keys[i]) for i, g in enumerate(grads)]
+            with spans.span("train.sign", dev):
+                keys = prng.split(key, len(leaves))
+                grads = [_stochastic_sign_compress(g, keys[i]) for i, g in enumerate(grads)]
 
-        with torch.no_grad():
+        with torch.no_grad(), spans.span("train.update", dev):
             params, opt_state = opt.update(tree_unflatten(params, grads), params,
                                            opt_state)
         return loss, params, opt_state
@@ -261,11 +268,13 @@ class Trainer:
     def step(self, batch: Dict[str, np.ndarray]) -> float:
         """One step on a batch of numpy arrays (``data.batches_for``); the
         mean loss."""
-        ks = prng.split(self.key)
-        self.key, k = ks[0], ks[1]
-        loss, self.params, self.opt_state = self.step_fn(
-            self.params, self.opt_state, batch_tensors(batch, self.device), k)
-        return float(loss)
+        with spans.span("train.step", self.device):
+            ks = prng.split(self.key)
+            self.key, k = ks[0], ks[1]
+            loss, self.params, self.opt_state = self.step_fn(
+                self.params, self.opt_state, batch_tensors(batch, self.device), k)
+            with spans.span("train.sync", self.device):
+                return float(loss)
 
 
 # ---------------------------------------------------------------------------

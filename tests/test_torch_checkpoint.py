@@ -256,7 +256,7 @@ def test_fused_resume_replays_the_captured_program(setups, tmp_path):
     resumed = eng.run(setups["tshards"], rounds=4, seed=7, mode="fused", faults=PLAN,
                       resume_from=ckdir)
     assert eng.fused_capture_count == captures
-    assert eng.fused_replay_count == replays + 2 * 2          # round + eval, 2 rounds
+    assert eng.fused_replay_count == replays + 3 * 2          # train + codec + eval, 2 rounds
     _assert_identical(full, resumed)
 
 

@@ -994,7 +994,7 @@ def test_fused_run_on_the_card(cuda, allocation, participation):
     assert any(getattr(ops, k).launches > v for k, v in before.items())
     captured, replays = eng.fused_capture_count, eng.fused_replay_count
     again = eng.run(shards, rounds=3, mode="fused", **kw)
-    graphs_a_round = 3 if allocation.startswith("adaptive") else 2
+    graphs_a_round = 3      # train, codec, eval; or stats, a bucket, eval
     assert eng.fused_capture_count == captured
     assert eng.fused_replay_count - replays == 3 * graphs_a_round
     assert torch.equal(again["theta"], fused["theta"]) and again["meter"] == fused["meter"]
@@ -1362,3 +1362,36 @@ def test_kernel_wrappers_report_their_work_to_op_cost(cuda):
         ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=True, window=16)
     assert "kernel:flash_attention" not in oc.totals.ops
     assert oc.totals.flops_by_region["flash_attention"] > 0
+
+
+def test_spans_time_the_card_and_record_no_event_in_a_capture(cuda):
+    """A span on the card gets its device time from CUDA events; inside a
+    graph capture it records none (host times only), and the captured
+    work is unchanged; a kernel launch through ``ops`` is ``kernel.<name>``
+    inside its caller's span."""
+    from repro_torch import spans
+    spans.clear()
+    x = torch.randn(1 << 20, device=cuda)
+    side, graph = torch.cuda.Stream(), torch.cuda.CUDAGraph()
+    q, p = torch.rand(8, 4096, device=cuda), torch.rand(8, 4096, device=cuda)
+    with spans.recording():
+        with spans.span("eager", cuda):
+            y = x * 2
+            ops.bernoulli_kl(q, p)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            x * 3                                   # warm-up outside the capture
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(graph, stream=side):
+            with spans.span("captured", cuda):
+                z = x * 3
+        with spans.span("replay", cuda):
+            graph.replay()
+    recs = spans.records()
+    by = {r.name: r for r in recs}
+    assert by["eager"].device_ms > 0 and by["replay"].device_ms > 0
+    assert by["captured"].device_ms is None and by["captured"].host_ms > 0
+    assert recs[by["kernel.bernoulli_kl"].parent].name == "eager"
+    assert by["kernel.bernoulli_kl"].device_ms is not None
+    assert torch.equal(y, x * 2) and torch.equal(z, x * 3)
+    spans.clear()

@@ -519,7 +519,7 @@ def test_second_run_of_a_signature_captures_nothing(mask_setup):
                                             n_is=N_IS))
     first = eng.run(tshards, rounds=2, seed=1)
     n = eng.fused_capture_count
-    assert n == 2                       # the round and the eval
+    assert n == 3                       # the train, the codec and the eval
     again = eng.run(tshards, rounds=2, seed=1)
     eng.run(tshards._replace(x=tshards.x.flip(1)), rounds=2, seed=2)
     assert eng.fused_capture_count == n
