@@ -12,7 +12,10 @@ Phases (each one fails the run with a non-zero exit; nothing is swallowed):
    shared memory); count the ``HGMMA`` (wgmma) instructions in each flash
    kernel's SASS (the bf16 ``flash_attn_wgmma`` and the f32 split-TF32
    ``flash_attn_tf32``), which must not be 0 for either;
-3. hold each kernel, through the routing wrapper the main paths call
+3. hold ``prng``'s draw kernel (``ops.threefry_draw``) at the STE's mask
+   and at one range of the stochastic sign bit for bit to its int64 route
+   on the card, timed against its instruction or byte bound; then hold
+   each kernel, through the routing wrapper the main paths call
    (``kernels.ops``), against its plain PyTorch version on the card, at the
    main paths' shapes (round 0 of the quickstart at full width for the KL
    and segment kernels), at ragged shapes and at degenerate segmentations,
@@ -181,14 +184,18 @@ Phases (each one fails the run with a non-zero exit; nothing is swallowed):
    width and depth as its config stands (bf16, remat, Adam), batch 4 x seq
    1024 in 2 microbatches, 3 steps with the stochastic sign and 3 without:
    losses finite, the parameters f32 after each step (the reference's
-   promotion), 112 flash launches a step (28 layers, forward and remat's
+   promotion), one ``prng`` draw a step (the key's split) and the sign's
+   ranges besides in a signed one,
+   112 flash launches a step (28 layers, forward and remat's
    recompute, 2 microbatches), ms a step (bf16 step 1, f32 steady), tokens/s,
    the share of 989 (step 1) and 67 (steady) TFLOP/s that 6 N D makes, peak
    memory, a profiled f32 step and a profiled bf16 first step (device busy
    share, top operations); then
    ``repro_torch.train_100m`` for 50 steps on the card: the loss falls.
 
-The second-to-last line is a JSON object ``{"kernels": [...]}``; the last is
+The second-to-last line is a JSON object ``{"kernels": [...]}``, a row a
+kernel with its launches by path (``prng``'s draw kernel, ``threefry_draw``,
+replaces no TPU kernel); the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 when torch sees no CUDA device.
 """
@@ -337,7 +344,11 @@ GRAD_RTOL, SIGN_TIE = 1e-5, 1e-6
 TRAIN_100M_STEPS, TRAIN_100M_BATCH, TRAIN_100M_SEQ = 50, 8, 256
 KERNELS = ("mrc_logw", "mrc_fixed_encode", "bernoulli_kl", "bernoulli_kl_total",
            "bernoulli_kl_profile", "segment_logw", "segment_mrc_encode", "segment_select",
-           "flash_attention", "rwkv_time_mix")
+           "flash_attention", "rwkv_time_mix", "threefry_draw")
+# prng's draws on the card: every FL path draws (masks, keys, shuffles) as
+# often as its task and codec make it, which the checks do not predict;
+# a model's prefill and greedy decode draw nothing.
+DRAWS = "threefry_draw"
 # The keyed encoders are bound by their threefry draws.  A draw's cost is
 # read from compiled code: two probe kernels, built from csrc/common.cuh
 # with the kernels' nvcc flags, store in a loop either uniform_at(key, j)
@@ -554,6 +565,14 @@ def read_counts():
     return {k: getattr(ops, k).launches for k in KERNELS}
 
 
+def drawn(launches, expect, label):
+    """``expect`` with prng's draws as counted in ``launches``, which an FL
+    run must show: it drew on the card."""
+    if not launches[DRAWS]:
+        raise AssertionError(f"{label}: prng drew nothing on the card")
+    return {**expect, DRAWS: launches[DRAWS]}
+
+
 def device_profile(fn, per: int = 1):
     """Run ``fn`` under ``torch.profiler``: (device busy ms per ``per``, the
     CUDA events with device time).  Busy is 0 when the profiler saw none.
@@ -657,6 +676,51 @@ def check_mrc_logw(shape, seed, timed=True, device=False):
             f"kernels per call (torch.profiler, 50 calls); {row['ms'] / row['bound_ms']:.2f}x "
             f"its bound; baddbmm takes {row['library_ms'] / row['ms']:.2f}x its time")
     return row
+
+
+def check_threefry_draw(tf):
+    """``prng``'s draw kernel (``ops.threefry_draw``) at the benchmark
+    cells' draws -- the STE's mask, bernoulli at (10, 203264) under keys
+    strided out of (10, 138, 2), and one range of the stochastic sign,
+    uniform_at at 2^24 positions -- bit for bit its plain int64 route on
+    the card, timed against its bound: the draws' SASS instructions at the
+    issue rate, or the bytes of p or the positions and the output."""
+    key = prng.PRNGKey(3, device="cuda")
+    mk = prng.split(prng.split(key, 10), 138)[:, 0]
+    p = prng.uniform(prng.fold_in(key, 1), (10, 203264))
+    lo = 135 * 2 ** 24
+    counts = torch.arange(lo, lo + 2 ** 24, device="cuda")
+    rows = {}
+    for label, args, shape in (("bernoulli, the STE's mask", (mk, (203264,), 0, "bernoulli", p),
+                                (10, 203264)),
+                               ("uniform_at, a range of the sign", (key, counts, 1, "unit"),
+                                (2 ** 24,))):
+        got = launched_once(ops.threefry_draw, *args)
+        want = prng.draw_int64(*args)
+        if got.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        if not torch.equal(got, want):
+            raise AssertionError(f"threefry_draw {label}: {int((got != want).sum())} draws "
+                                 "differ from the int64 route")
+        work = kcost.threefry_draw(*args)
+        row = timed_row(f"threefry_draw {label}", shape, 0.0,
+                        lambda a=args: ops.threefry_draw(*a),
+                        lambda a=args: prng.draw_int64(*a), None, work.nbytes,
+                        work.draws * tf[0], tf[1], reps=20)
+        row["device_ms"], row["device_kernels_per_call"] = device_per_call(
+            lambda a=args: ops.threefry_draw(*a), 20, expect=1)
+        row["plain_device_ms"], row["plain_kernels_per_call"] = device_per_call(
+            lambda a=args: prng.draw_int64(*a), 5)
+        row.update(threefry_draws=work.draws, threefry_instructions=tf[0])
+        log(f"threefry_draw {label} {shape}: equal to the int64 route; kernel {row['ms']:.4f} "
+            f"ms (device {fmt_ms(row['device_ms'])} in {row['device_kernels_per_call']:.1f} "
+            f"kernels a call), int64 route {row['plain_ms']:.4f} ms (device "
+            f"{fmt_ms(row['plain_device_ms'])} in {row['plain_kernels_per_call']:.1f} kernels); "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: {work.draws:.0f} draws x "
+            f"{tf[0]} SASS instructions at {tf[1]:.3e}/s; {work.nbytes:.0f} B); "
+            f"{row['ms'] / row['bound_ms']:.2f}x its bound")
+        rows[label] = row
+    return rows
 
 
 def round0_inputs():
@@ -1137,7 +1201,7 @@ def check_path(name, launches, plans, out):
         expect["mrc_fixed_encode"] = expect["bernoulli_kl_total"] = ROUNDS
     if d != 28160:
         raise AssertionError(f"not the full-width model: d {d}")
-    if launches != expect:
+    if launches != drawn(launches, expect, f"path {name}"):
         raise AssertionError(f"path {name}: launches {launches}, expected {expect}")
     bits = math.log2(c["n_is"])
     cum, total = [], 0.0
@@ -1205,7 +1269,7 @@ def check_variant(label, launches, plans, out, rounds=VARIANT_ROUNDS):
         expect["bernoulli_kl_profile"] = rounds
     else:
         expect["mrc_fixed_encode"] = rounds * (1 + N_DL)
-    if d != 28160 or launches != expect:
+    if d != 28160 or launches != drawn(launches, expect, f"variant {label}"):
         raise AssertionError(f"variant {label}: d {d}, launches {launches}, expected {expect}")
     sched = out["active_schedule"]
     if sched.shape != (rounds, n_act) or (cohort_rng == "jax" and sched.tolist() !=
@@ -1273,7 +1337,7 @@ def check_cfl(launches, out, rounds=CFL_ROUNDS):
     expect = {k: 0 for k in KERNELS}
     expect["mrc_fixed_encode"] = rounds
     theta, th = out["theta"], out["theta_hat"]
-    if theta.shape != (28160,) or launches != expect:
+    if theta.shape != (28160,) or launches != drawn(launches, expect, "CFL"):
         raise AssertionError(f"CFL: d {tuple(theta.shape)}, launches {launches}, "
                              f"expected {expect}")
     got = [h["cum_bits"] for h in out["history"]]
@@ -1290,7 +1354,8 @@ def check_cfl(launches, out, rounds=CFL_ROUNDS):
 def phase_baselines(rounds=CFL_ROUNDS):
     """The seven baselines at the example's width through ``run_baseline``,
     3 rounds each (CSER and LIEC flush after round 2): the reference's bits,
-    a finite model, and no kernel launch (no baseline reaches one).
+    a finite model, and no launch of a kernel but prng's draw kernel (no baseline
+    reaches another).
     Returns ``{label: (launches, None, out)}``."""
     task, theta0, shards = cfl_gradient_compression.build("cuda")
     runs = {}
@@ -1305,7 +1370,7 @@ def phase_baselines(rounds=CFL_ROUNDS):
         wall = time.perf_counter() - t0
         launches = read_counts()
         got = [h["cum_bits"] for h in out["history"]]
-        if any(launches.values()):
+        if launches != drawn(launches, {k: 0 for k in KERNELS}, f"baseline {scheme}"):
             raise AssertionError(f"baseline {scheme}: kernel launches {launches}")
         if got != BASELINE_REF_BITS[scheme][:rounds]:
             raise AssertionError(f"baseline {scheme}: booked bits {got}, the reference's "
@@ -1315,7 +1380,8 @@ def phase_baselines(rounds=CFL_ROUNDS):
             raise AssertionError(f"baseline {scheme}: model not finite or of the wrong shape")
         log(f"baseline {scheme}: {rounds} rounds in {wall:.3f} s; bits {got} (the reference's); "
             f"bpp {out['meter']['bpp']:.6f}; accuracy "
-            f"{[round(h['acc'], 4) for h in out['history']]}; no kernel launched")
+            f"{[round(h['acc'], 4) for h in out['history']]}; no kernel launched but "
+            f"{launches[DRAWS]} prng draws")
         runs[f"baseline {scheme}"] = (launches, None, out)
     return runs
 
@@ -1754,7 +1820,7 @@ def phase_fused(label, host_out, host_launches):
     if adaptive:
         enc = "segment_mrc_encode" if kind == "adaptive" else "mrc_fixed_encode"
         expect[enc] = 2 * len(set(out["buckets"])) * per_round[enc]
-    if launches != expect:
+    if launches != drawn(launches, expect, f"fused {label}"):
         raise AssertionError(f"fused {label}: launches {launches} at capture, expected {expect}")
     if adaptive:
         ctask, cshards = cpu_copy(task, shards)
@@ -1798,7 +1864,10 @@ def phase_fused(label, host_out, host_launches):
     _, host_events = device_profile(
         lambda: FLEngine(task, spec).run(shards, rounds=1, mode="host", **run_kw), 1)
     host_own = own_launches(host_events, 1)
-    if fused_own != host_own or (any(per_round.values()) and not fused_own):
+    # prng's draw kernel is not among OWN_KERNELS: its launches a round
+    # differ between the paths by the run's own draws
+    if fused_own != host_own or (any(v for k, v in per_round.items() if k != DRAWS)
+                                 and not fused_own):
         raise AssertionError(f"fused {label}: the port's kernels launch {fused_own} per "
                              f"replayed round, the host loop {host_own}")
     entry = entry_point_run(label, task, shards, run_kw, rounds)
@@ -2979,6 +3048,7 @@ def train_full_width():
             # the caching allocator's retries (cached blocks freed, cudaMalloc
             # again) are a cost of the memory's layout, not of the arithmetic
             steps.append({"loss": loss, "ms": ms, "flash": counts["flash_attention"],
+                          "draws": counts[DRAWS],
                           "dtype": str(tr.params["head"].dtype).split(".")[1],
                           "alloc_retries": torch.cuda.memory_stats().get(
                               "num_alloc_retries", 0) - retries})
@@ -2987,11 +3057,13 @@ def train_full_width():
         log(f"train {TRAIN_ARCH} {cfg.dtype}, remat, Adam, ({TRAIN_BATCH}, {TRAIN_SEQ}) in "
             f"{TRAIN_MB} microbatches, {label}: init {t_init:.1f} s; steps "
             f"{json.dumps(steps)}; peak device memory {peak / 2**20:.1f} MiB")
-        if any(not math.isfinite(s["loss"]) or s["flash"] != expect for s in steps) \
+        if any(not math.isfinite(s["loss"]) or s["flash"] != expect or not s["draws"]
+               or (s["draws"] == 1) != (comp is None) for s in steps) \
                 or [s["dtype"] for s in steps] != ["float32"] * len(steps):
             raise AssertionError(f"train {TRAIN_ARCH} {label}: losses finite, {expect} flash "
-                                 f"launches a step and f32 parameters after each step "
-                                 f"expected; got {steps}")
+                                 f"launches a step, one prng draw a step (the key's split) "
+                                 f"and more under the sign, and f32 parameters after each "
+                                 f"step expected; got {steps}")
         step1, steady = steps[0]["ms"], float(np.median([s["ms"] for s in steps[1:]]))
         runs[label] = {"steps": steps, "peak_mib": peak / 2**20, "step1_ms": step1,
                        "steady_ms": steady, "tokens_per_s_steady": tokens / steady * 1e3,
@@ -3272,6 +3344,7 @@ def main() -> int:
 
     # Phase 3.
     t3 = time.perf_counter()
+    draw_rows = check_threefry_draw(tf)
     main_row = check_mrc_logw((2200, 64, 128), seed=1, device=True)
     cfl_row = check_mrc_logw(CFL_LOGW_SHAPE, seed=30, device=True)
     check_mrc_logw((7, 48, 100), seed=2, timed=False)
@@ -3437,7 +3510,14 @@ def main() -> int:
               "hgmma_in_sass": hgmma}),
             ("rwkv_chunk", "rwkv_chunk", "src/repro/kernels/rwkv_chunk.py:90",
              model_rows["rwkv"], by_model("rwkv_time_mix"),
-             {"shape": model_rows["rwkv"]["shape"]})]
+             {"shape": model_rows["rwkv"]["shape"]}),
+            ("threefry_draw", "threefry_draw", None, draw_rows["bernoulli, the STE's mask"],
+             {**by_path(DRAWS), **by_model(DRAWS)},
+             {**{k: v for k, v in draw_rows["bernoulli, the STE's mask"].items()
+                 if k not in keys},
+              "uniform_at_sign_range": draw_rows["uniform_at, a range of the sign"],
+              "fused_capture_launches": {p: f["capture_launches"][DRAWS]
+                                         for p, f in fused.items()}})]
     # The fused paths: each kernel's device launches per replayed round (by
     # its device names, from the profiler) and its wrapper's count at capture.
     device_names = {"mrc_logw": ("mrc_logw_kernel",), "mrc_fixed_encode": ("mrc_encode_kernel",),

@@ -28,7 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # Every kernel source of the port, by kernel name (``csrc/<name>.cu``).
-SOURCES = ("mrc_logw", "bernoulli_kl", "segment_logw", "flash_attn", "rwkv_chunk")
+SOURCES = ("mrc_logw", "bernoulli_kl", "segment_logw", "flash_attn", "rwkv_chunk",
+           "threefry_draw")
 
 
 def _build_dir() -> Path:

@@ -21,10 +21,13 @@ forward and its backward each counted ``n`` times.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import List, NamedTuple
 
 import numpy as np
 import torch
+
+from repro_torch.prng import DRAW_DTYPES, draw_dims
 
 
 class Work(NamedTuple):
@@ -92,6 +95,19 @@ def segment_select(shared_key, indices, pc, seg_ids) -> Work:
     d = pc.shape[-1]
     return Work(pc.numel(), 4 * (2 * pc.numel() + d) + 8 * (indices.numel() + shared_key.numel()),
                 pc.numel())
+
+
+def threefry_draw(key, at, ndim, out, p=None) -> Work:
+    """One draw a position; bytes of the key, the explicit positions or
+    ``p`` as given, and the output."""
+    lead, sample = draw_dims(key, at, ndim, out, p)
+    n = math.prod(lead) * math.prod(sample)
+    nbytes = 8 * key.numel() + n * (2 if out == "words" else 1) * DRAW_DTYPES[out].itemsize
+    if out == "bernoulli":
+        nbytes += p.numel() * p.element_size()
+    elif isinstance(at, torch.Tensor):
+        nbytes += 8 * at.numel()
+    return Work(0.0, nbytes, n)
 
 
 def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:

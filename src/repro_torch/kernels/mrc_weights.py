@@ -53,15 +53,24 @@ def block_keys(key: torch.Tensor, n_blocks: int) -> torch.Tensor:
     return prng.fold_in(key[..., None, :], ids)
 
 
+# The plain versions draw in int64 torch ops (``prng.draw_int64``) on every
+# device, so on the card they share no code with the kernels they check.
+
+def _plain_block_keys(key: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """``block_keys`` in int64 torch ops."""
+    ids = torch.arange(n_blocks, dtype=torch.int64, device=key.device)
+    return prng.draw_int64(key[..., None, :], ids, 0, "words")
+
+
 def block_candidates(shared_key: torch.Tensor, n_blocks: int, n_is: int,
                      size: int) -> torch.Tensor:
     """All candidate uniforms of every block: ``(K..., B, n_is, size)``."""
-    return prng.uniform(block_keys(shared_key, n_blocks), (n_is, size))
+    return prng.draw_int64(_plain_block_keys(shared_key, n_blocks), (n_is, size), 0, "unit")
 
 
 def block_gumbel(select_key: torch.Tensor, n_blocks: int, n_is: int) -> torch.Tensor:
     """The selection noise of every block: ``(K..., B, n_is)``."""
-    gu = prng.uniform(block_keys(select_key, n_blocks), (n_is,))
+    gu = prng.draw_int64(_plain_block_keys(select_key, n_blocks), (n_is,), 0, "unit")
     return -torch.log(-torch.log(torch.clamp(gu, 1e-12, 1.0 - 1e-12)))
 
 

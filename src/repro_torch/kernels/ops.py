@@ -21,13 +21,14 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch import spans
+from repro_torch import prng, spans
 from . import bernoulli_kl as _kl
 from . import cost
 from . import flash_attn as _fa
 from . import mrc_weights as _mw
 from . import rwkv_chunk as _rw
 from . import segment_logw as _seg
+from . import threefry_draw as _tf
 
 
 def _route(fn, plain, kernel, t: torch.Tensor, *args, work=None):
@@ -142,6 +143,23 @@ def segment_select(shared_key: torch.Tensor, indices: torch.Tensor, pc: torch.Te
                   shared_key, indices, pc, seg_ids)
 
 
+def threefry_draw(key: torch.Tensor, at, ndim: int = 0, out: str = "bits",
+                  p: torch.Tensor = None) -> torch.Tensor:
+    """One Threefry-2x32 draw of ``prng``: key (K..., 2) int64 words; ``at``
+    a shape, an int or a tensor of positions (last ``ndim`` axes the
+    sample); ``out`` "words", "bits", "unit" or "bernoulli" (against ``p``,
+    ``at`` then ``p.shape[key.dim() - 1:]``).  ``prng.draw_int64`` says
+    what each computes; it is the plain version.
+
+    Every draw of ``prng`` comes here.  On the card it is one launch
+    (``csrc/threefry_draw.cu``) in native uint32, in place of ~180 int64
+    elementwise ops, and safe to capture in a CUDA graph; an empty draw is
+    counted but launches nothing.
+    """
+    return _route(threefry_draw, prng.draw_int64, _tf.threefry_draw_cuda, key,
+                  key, at, ndim, out, p)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, scale: float = 1.0,
                     kv_chunk: int = _fa.KV_CHUNK) -> torch.Tensor:
@@ -232,7 +250,7 @@ def _plain_grads(ctx, plain, grad) -> tuple:
 
 for _fn in (mrc_logw, mrc_fixed_encode, bernoulli_kl, bernoulli_kl_total,
             bernoulli_kl_profile, segment_logw, segment_mrc_encode, segment_select,
-            flash_attention, rwkv_time_mix):
+            threefry_draw, flash_attention, rwkv_time_mix):
     _fn.launches = 0
     _fn.span_name = f"kernel.{_fn.__name__}"
 

@@ -55,9 +55,14 @@ def segment_logw_ref(u: torch.Tensor, p: torch.Tensor, a: torch.Tensor,
 
 
 def segment_candidates(shared_key: torch.Tensor, n_is: int, d: int) -> torch.Tensor:
-    """Candidate uniforms ``(K..., n_is, d)``: row r is ``uniform(fold_in(key, r), (d,))``."""
+    """Candidate uniforms ``(K..., n_is, d)``: row r is ``uniform(fold_in(key, r), (d,))``.
+
+    The plain versions draw in int64 torch ops (``prng.draw_int64``) on
+    every device, so on the card they share no code with the kernels they
+    check."""
     rows = torch.arange(n_is, dtype=torch.int64, device=shared_key.device)
-    return prng.uniform(prng.fold_in(shared_key[..., None, :], rows), (d,))
+    keys = prng.draw_int64(shared_key[..., None, :], rows, 0, "words")
+    return prng.draw_int64(keys, (d,), 0, "unit")
 
 
 def segment_mrc_encode_ref(shared_key: torch.Tensor, select_key: torch.Tensor,
@@ -79,7 +84,7 @@ def segment_mrc_encode_ref(shared_key: torch.Tensor, select_key: torch.Tensor,
     else:
         logw = torch.stack([seg_logw_fn(u[c], pc[c], a[c], b[c], seg_ids, n_seg)
                             for c in range(u.shape[0])])
-    gu = prng.uniform(select_key, (n_is, n_seg))                   # (N..., n_is, n_seg)
+    gu = prng.draw_int64(select_key, (n_is, n_seg), 0, "unit")     # (N..., n_is, n_seg)
     gumbel = -torch.log(-torch.log(torch.clamp(gu, 1e-12, 1.0 - 1e-12)))
     idx = torch.argmax(logw + gumbel, dim=-2)                      # (N..., n_seg)
     rows = idx[..., seg_ids.to(torch.int64)]                       # (N..., d)
@@ -94,9 +99,9 @@ def segment_select_ref(shared_key: torch.Tensor, indices: torch.Tensor, pc: torc
     (O(d), not O(d * n_is))."""
     d = pc.shape[-1]
     rows = indices.to(torch.int64)[..., seg_ids.to(torch.int64)]  # (N..., d)
-    keys = prng.fold_in(shared_key[..., None, :], rows)            # (N..., d, 2)
+    keys = prng.draw_int64(shared_key[..., None, :], rows & prng.MASK32, 0, "words")
     cols = torch.arange(d, dtype=torch.int64, device=pc.device)
-    return (prng.uniform_at(keys, cols, ndim=0) < pc).to(torch.float32)
+    return (prng.draw_int64(keys, cols, 0, "unit") < pc).to(torch.float32)
 
 
 @functools.lru_cache(maxsize=None)

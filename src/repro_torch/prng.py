@@ -19,8 +19,13 @@ Semantics follow ``jax._src.prng`` under ``jax_threefry_partitionable=True``
 
 Every function is batched over the leading axes of its key: a key of shape
 ``(K..., 2)`` gives outputs of shape ``(K..., *shape)``, which replaces
-``jax.vmap`` over keys.  uint32 arithmetic is done in int64 and masked to 32
-bits after every add, so the same code runs on CPU and CUDA.
+``jax.vmap`` over keys.
+
+Every draw goes through ``kernels.ops.threefry_draw`` (``draw_int64``'s
+arguments): for a key on the card that is one launch of a hand-written
+kernel in native uint32 (``kernels/csrc/threefry_draw.cu``); for a key on
+the CPU or ``meta`` it is ``draw_int64``, where uint32 arithmetic is done in
+int64 and masked to 32 bits after every add.  Both give the same bits.
 """
 from __future__ import annotations
 
@@ -81,6 +86,63 @@ def _key_words(key: torch.Tensor, n_new: int):
     return k0[idx], k1[idx]
 
 
+# What each kind of draw writes (``draw_int64``'s ``out``).
+DRAW_DTYPES = {"words": torch.int64, "bits": torch.int64, "unit": torch.float32,
+               "bernoulli": torch.bool}
+
+
+def draw_dims(key: torch.Tensor, at, ndim: int, out: str, p=None) -> tuple:
+    """``(lead, sample)`` of a draw (``draw_int64``'s arguments): its batch
+    shape, the key's batch axes broadcast against those of ``at`` or ``p``,
+    and its sample shape; the output is ``lead + sample`` (``+ (2,)`` for
+    words)."""
+    batch = tuple(key.shape[:-1])
+    if out == "bernoulli":
+        kd = key.dim() - 1
+        return tuple(torch.broadcast_shapes(batch, p.shape[:kd])), tuple(p.shape[kd:])
+    if isinstance(at, tuple):
+        return batch, at
+    if isinstance(at, int):
+        return batch, ()
+    cut = at.dim() - ndim
+    return tuple(torch.broadcast_shapes(batch, at.shape[:cut])), tuple(at.shape[cut:])
+
+
+def draw_int64(key: torch.Tensor, at, ndim: int = 0, out: str = "bits",
+               p: torch.Tensor = None) -> torch.Tensor:
+    """One draw in int64 torch ops: the plain route of ``ops.threefry_draw``.
+
+    ``at`` is a shape (positions ``0 .. prod(at) - 1``, row-major), an int
+    (one position) or an int64 tensor of positions whose last ``ndim`` axes
+    are sample axes; the key's batch axes broadcast against the rest.  The
+    counter of position j is ``(hi(j), lo(j))``.  ``out``: ``"words"``
+    (``(y0, y1)`` on a trailing axis), ``"bits"`` (``y0 ^ y1``), ``"unit"``
+    (the float in [0, 1)) or ``"bernoulli"`` (``unit < p``).
+    """
+    if isinstance(at, tuple):
+        counts = torch.arange(math.prod(at), dtype=torch.int64, device=key.device).reshape(at)
+        ndim = len(at)
+    elif isinstance(at, int):
+        # A fill, not a host-to-device copy: safe inside a captured graph.
+        counts = torch.full((), at, dtype=torch.int64, device=key.device)
+    else:
+        counts = at
+    k0, k1 = _key_words(key, ndim)
+    y0, y1 = threefry2x32(k0, k1, counts >> 32, counts & MASK32)
+    if out == "words":
+        return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
+    bits = y0 ^ y1
+    if out == "bits":
+        return bits
+    floats = _bits_to_unit_float(bits)
+    return floats if out == "unit" else floats < p
+
+
+def _draw(key: torch.Tensor, at, ndim: int = 0, out: str = "bits", p=None) -> torch.Tensor:
+    from repro_torch.kernels import ops   # kernels/mrc_weights.py imports this module
+    return ops.threefry_draw(key, at, ndim, out, p)
+
+
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``, broadcast over key batch axes and ``data``.
 
@@ -88,41 +150,19 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     shape broadcasts against ``K...``.  Returns ``(broadcast..., 2)``.
     """
     if isinstance(data, numbers.Integral):
-        # A fill, not a host-to-device copy: safe inside a captured graph.
-        d = torch.full((), int(data) & MASK32, dtype=torch.int64, device=key.device)
-    else:
-        d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & MASK32
-    y0, y1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
-    return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
+        return _draw(key, int(data) & MASK32, 0, "words")
+    d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & MASK32
+    return _draw(key, d, 0, "words")
 
 
 def split(key: torch.Tensor, num: Shape = 2) -> torch.Tensor:
     """``jax.random.split``: ``(K..., 2)`` -> ``(K..., *num, 2)``."""
-    shape = _shape(num)
-    counts = torch.arange(math.prod(shape), dtype=torch.int64,
-                          device=key.device).reshape(shape)
-    k0, k1 = _key_words(key, len(shape))
-    y0, y1 = threefry2x32(k0, k1, counts >> 32, counts & MASK32)
-    return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
-
-
-def _bits_at(key: torch.Tensor, counts: torch.Tensor, ndim: int) -> torch.Tensor:
-    """32 random bits at flat stream positions ``counts``.
-
-    The last ``ndim`` axes of ``counts`` are sample axes; the key's batch
-    axes broadcast against the rest.
-    """
-    k0, k1 = _key_words(key, ndim)
-    y0, y1 = threefry2x32(k0, k1, counts >> 32, counts & MASK32)
-    return y0 ^ y1
+    return _draw(key, _shape(num), 0, "words")
 
 
 def random_bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
     """32 random bits per element: ``(K..., 2)`` -> int64 ``(K..., *shape)``."""
-    shape = _shape(shape)
-    counts = torch.arange(math.prod(shape), dtype=torch.int64,
-                          device=key.device).reshape(shape)
-    return _bits_at(key, counts, len(shape))
+    return _draw(key, _shape(shape), 0, "bits")
 
 
 def _bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
@@ -137,7 +177,7 @@ def uniform_at(key: torch.Tensor, counts: torch.Tensor, ndim: int = 1) -> torch.
     ``uniform(key, shape).reshape(..., -1)[..., j] == uniform_at(key, j)``:
     the decoder regenerates one candidate row without drawing the others.
     """
-    return _bits_to_unit_float(_bits_at(key, counts, ndim))
+    return _draw(key, counts, ndim, "unit")
 
 
 def uniform(key: torch.Tensor, shape: Shape = (), minval: float = 0.0,
@@ -148,7 +188,7 @@ def uniform(key: torch.Tensor, shape: Shape = (), minval: float = 0.0,
     ``floats * (maxval - minval) + minval`` rounds twice here; XLA may
     contract it into one FMA, so such ranges agree to within 1 ulp.
     """
-    floats = _bits_to_unit_float(random_bits(key, shape))
+    floats = _draw(key, _shape(shape), 0, "unit")
     if minval == 0.0 and maxval == 1.0:
         return floats  # floats * 1 + 0, clamped at 0: the identity
     lo = torch.full((), minval, dtype=torch.float32, device=key.device)
@@ -160,9 +200,10 @@ def bernoulli(key: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """``jax.random.bernoulli(key, p)`` (bool), batched over key axes.
 
     ``key`` is ``(K..., 2)``; ``p`` is ``(K..., *S)`` and each key draws
-    the ``S``-shaped sample that ``jax.random.bernoulli(k, p_k)`` draws.
+    the ``S``-shaped sample that ``jax.random.bernoulli(k, p_k)`` draws:
+    ``uniform(key, S) < p``, compared where it is drawn.
     """
-    return uniform(key, p.shape[key.dim() - 1:]) < p
+    return _draw(key, tuple(p.shape[key.dim() - 1:]), 0, "bernoulli", p)
 
 
 def _mul32(a: torch.Tensor, b) -> torch.Tensor:

@@ -1395,3 +1395,147 @@ def test_spans_time_the_card_and_record_no_event_in_a_capture(cuda):
     assert by["kernel.bernoulli_kl"].device_ms is not None
     assert torch.equal(y, x * 2) and torch.equal(z, x * 3)
     spans.clear()
+
+
+# ---------------------------------------------------------------------------
+# prng's draws: one launch of csrc/threefry_draw.cu each, bit for bit
+# prng's int64 route (prng.draw_int64) run on the same card.
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import threefry_draw as tfd  # noqa: E402
+
+
+def _on_int64_route(monkeypatch):
+    """Every prng draw from here on takes the plain int64 route, on the card."""
+    monkeypatch.setattr(ops, "threefry_draw",
+                        lambda key, at, ndim=0, out="bits", p=None:
+                        prng.draw_int64(key, at, ndim, out, p))
+
+
+def _draw_cases():
+    """name -> f(device): the draws of the cells' shapes and prng's callers."""
+    def keys(dev, seed, *batch):
+        k = prng.PRNGKey(seed, device=dev)
+        return prng.split(k, batch) if batch else k
+
+    def sign_range(k, lo_shift=0, n=2 ** 24):
+        lo = k * 2 ** 24 + lo_shift
+        return lambda dev: prng.uniform_at(keys(dev, 9), torch.arange(lo, lo + n, device=dev))
+
+    return {
+        # the STE's mask: keys (10, 2) strided out of (10, 138, 2), p (10, 203264)
+        "bernoulli-ste": lambda dev: prng.bernoulli(
+            prng.split(keys(dev, 1, 10), 138)[:, 5],
+            prng.uniform(keys(dev, 2, 10), (203264,))),
+        "bernoulli-ragged-one-key": lambda dev: prng.bernoulli(
+            keys(dev, 3), prng.uniform(keys(dev, 4), (7, 1001))),
+        "bernoulli-bf16-p": lambda dev: prng.bernoulli(
+            keys(dev, 5, 4), prng.uniform(keys(dev, 6), (4, 512)).to(torch.bfloat16)),
+        # the stochastic sign's ranges [k 2^24, (k + 1) 2^24), below and past 2^32
+        "uniform_at-range-0": sign_range(0),
+        "uniform_at-range-135": sign_range(135),
+        "uniform_at-range-256": sign_range(256),
+        "uniform_at-range-300": sign_range(300),
+        "uniform_at-past-2^32-ragged": lambda dev: prng.uniform_at(
+            keys(dev, 10, 3), torch.arange(2 ** 32 - 1000, 2 ** 32 + 12345, device=dev)[3:]),
+        "uniform_at-decoder-rows": lambda dev: mrc._selected_candidate(
+            keys(dev, 11), torch.arange(10 * 1588, device=dev).reshape(10, 1588) % 64, 128),
+        "split": lambda dev: (prng.split(keys(dev, 12, 10), 138), prng.split(keys(dev, 13), (2, 3)),
+                              prng.split(keys(dev, 14, 10), 2)),
+        "fold_in": lambda dev: (prng.fold_in(keys(dev, 15, 10), 2 ** 32 - 1),
+                                prng.fold_in(keys(dev, 16), 7),
+                                prng.fold_in(keys(dev, 17), torch.arange(1588, device=dev)),
+                                prng.fold_in(keys(dev, 18, 10)[:, None, :],
+                                             torch.arange(1588, device=dev))),
+        "randint": lambda dev: prng.randint(keys(dev, 19, 10), (138, 128), 0, 6000),
+        "uniform-normal-gumbel": lambda dev: (prng.uniform(keys(dev, 20, 10), (64, 128)),
+                                              prng.normal(keys(dev, 21), (3, 333)),
+                                              prng.gumbel(keys(dev, 22), (5, 77)),
+                                              prng.random_bits(keys(dev, 23, 2), (9, 31))),
+        "choice-permutation": lambda dev: (prng.choice(keys(dev, 24), 10, (5,), replace=False),
+                                           prng.permutation(keys(dev, 25, 3), 1000)),
+    }
+
+
+def _flat_bits(out):
+    outs = out if isinstance(out, tuple) else (out,)
+    return [t.view(torch.int32) if t.dtype == torch.float32 else t for t in outs]
+
+
+@pytest.mark.parametrize("name", list(_draw_cases()))
+def test_prng_draws_on_card_equal_the_int64_route(cuda, monkeypatch, name):
+    fn = _draw_cases()[name]
+    before = ops.threefry_draw.launches
+    got = fn(cuda)
+    assert ops.threefry_draw.launches > before
+    _on_int64_route(monkeypatch)
+    want = fn(cuda)
+    torch.cuda.synchronize()
+    for g, w in zip(_flat_bits(got), _flat_bits(want)):
+        assert g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_prng_draws_capture_into_a_cuda_graph(cuda, monkeypatch):
+    """Captured once and replayed on new keys and probabilities, the draws
+    equal the int64 route's on those inputs; a replay runs no Python."""
+    key = prng.PRNGKey(31, device=cuda)
+    mk = prng.split(prng.split(key, 10), 138)[:, 7].clone()    # static inputs
+    p = prng.uniform(prng.fold_in(key, 1), (10, 203264))
+    counts = torch.arange(135 * 2 ** 24, 135 * 2 ** 24 + (1 << 20), device=cuda)
+
+    def draws():
+        return (prng.bernoulli(mk, p), prng.uniform_at(key, counts), prng.split(mk, 138),
+                prng.fold_in(key, 3), prng.randint(mk, (138, 128), 0, 6000))
+
+    side, graph = torch.cuda.Stream(), torch.cuda.CUDAGraph()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        draws()                                                  # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    before = ops.threefry_draw.launches
+    with torch.cuda.graph(graph, stream=side):
+        captured = draws()
+    assert ops.threefry_draw.launches - before == 1 + 1 + 1 + 1 + 3
+    for seed in (32, 33):
+        fresh = prng.PRNGKey(seed, device=cuda)
+        key.copy_(fresh)
+        mk.copy_(prng.split(prng.split(fresh, 10), 138)[:, 7])
+        p.copy_(prng.uniform(prng.fold_in(fresh, 1), (10, 203264)))
+        launched = ops.threefry_draw.launches
+        graph.replay()
+        torch.cuda.synchronize()
+        assert ops.threefry_draw.launches == launched
+        with monkeypatch.context() as m:
+            _on_int64_route(m)
+            want = draws()
+        for g, w in zip(_flat_bits(captured), _flat_bits(want)):
+            assert torch.equal(g, w)
+
+
+def test_fused_gr_round_captures_one_mask_draw_per_ste_step(cuda, monkeypatch):
+    """The fused GR round's train graph holds one ``threefry_draw`` launch
+    per STE step for the masks (made once eagerly, once in the capture);
+    a second run replays and makes no draw in Python."""
+    seen = []
+    kernel = tfd.threefry_draw_cuda
+
+    def spy(key, at, ndim=0, out="bits", p=None):
+        seen.append((out, torch.cuda.is_current_stream_capturing()))
+        return kernel(key, at, ndim, out, p)
+
+    monkeypatch.setattr(tfd, "threefry_draw_cuda", spy)
+    cfg = dict(quickstart.CONFIG, **dict(SMALL, local_epochs=3), allocation="fixed")
+    task, spec, shards = quickstart.build(cuda, cfg)
+    shard = shards.y.shape[1]
+    n_steps = task.local_epochs * max(shard // min(task.batch_size, shard), 1)
+    eng = FLEngine(task, spec)
+    seen.clear()
+    fused = eng.run(shards, rounds=2, mode="fused")
+    masks = [c for o, c in seen if o == "bernoulli"]
+    assert masks.count(True) == n_steps and masks.count(False) == n_steps
+    seen.clear()
+    again = eng.run(shards, rounds=2, mode="fused")
+    assert not [o for o, _ in seen if o == "bernoulli"]
+    assert torch.equal(again["theta"], fused["theta"])
+    host = FLEngine(task, spec).run(shards, rounds=2, mode="host")
+    assert torch.equal(host["theta"], fused["theta"]) and host["meter"] == fused["meter"]
